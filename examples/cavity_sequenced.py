@@ -3,7 +3,7 @@
 The reference has no analog (its FMG bootstraps only the linear pressure
 solve, ``multigrid.py:562-688``); nonlinear grid sequencing +
 continuation is what converges 1024^2-4096^2 grids and Re >= 7500 here
-(see BENCHMARKS.md).  Functional API (the sequencing driver owns the
+(see PERF.md).  Functional API (the sequencing driver owns the
 per-level loop, so the OO facade does not apply).
 
     python examples/cavity_sequenced.py --nx 255 --re 1000

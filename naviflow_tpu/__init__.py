@@ -1,10 +1,10 @@
-"""naviflow_tpu — a TPU-native structured-grid finite-volume CFD framework.
+"""naviflow_tpu — a JAX structured-grid finite-volume CFD framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
-NaviFlow package (steady incompressible Navier–Stokes on a 2-D staggered
-grid, SIMPLE-family pressure–velocity coupling, a matrix-free linear-solver
-zoo, geometric multigrid, and Ghia et al. (1982) lid-driven-cavity
-validation) — architected for TPUs: functional pytree state, whole-solve
+A ground-up JAX/XLA rebuild of the capabilities of the reference NaviFlow
+package (steady incompressible Navier–Stokes on a 2-D staggered grid,
+SIMPLE-family pressure–velocity coupling, a matrix-free linear-solver zoo,
+geometric multigrid, and Ghia et al. (1982) lid-driven-cavity validation) —
+architected for accelerators: functional pytree state, whole-solve
 ``jax.jit`` + ``lax.while_loop`` stepping, fused stencil kernels, and
 ``shard_map`` spatial domain decomposition over device meshes.
 """

@@ -3,11 +3,11 @@ vmapped XLA program.
 
 The reference's only data parallelism is a shell-script job farm that runs
 independent simulations as separate processes
-(``main_scripts/07 AMG_CG/run_m3_optimized.sh``).  The TPU-native
+(``main_scripts/07 AMG_CG/run_m3_optimized.sh``).  The JAX
 equivalent (SURVEY §2.3 "DP" row) is ``jax.vmap`` over the case axis:
 viscosity is the one per-case scalar (cavity Re = rho·U·L/mu with U = L = 1),
 so a sweep over Reynolds numbers at a fixed grid is a single batched solve —
-the MXU sees batched stencil algebra instead of ``len(cases)`` sequential
+the device sees batched stencil algebra instead of ``len(cases)`` sequential
 kernel launches.
 
 Semantics of a vmapped ``lax.while_loop``: the program runs until *every*

@@ -6,8 +6,7 @@ cavity on a ladder of coarser grids first and warm-starts each finer level
 from the interpolated coarse solution, cutting fine-grid iterations by an
 order of magnitude.  The reference has no analog (its FMG bootstraps only
 the *linear* pressure solve, ``multigrid.py:562-688``); this is the
-nonlinear counterpart and a natural fit for the one-compiled-program-per-
-level TPU execution model.
+nonlinear counterpart, with one compiled program per level.
 
 Staggered warm-start interpolation uses bilinear ``jax.image.resize`` per
 field — the reference's ``dx = L/(nx-1)`` convention makes grid ladders
@@ -107,7 +106,6 @@ def sequenced_continuation_solve(
     dtype=jnp.float32,
     per_re_cfg=None,
     per_level_cfg=None,
-    perturb_seed: int = None,
 ) -> Tuple[FlowState, object, list]:
     """Grid sequencing composed with Reynolds continuation (ROADMAP #8).
 
@@ -130,10 +128,6 @@ def sequenced_continuation_solve(
     coarse_mesh = StructuredMesh(nx=nx_c, ny=nx_c, length=mesh.length,
                                  height=mesh.height)
     state = initialize_state(coarse_mesh, bc, dtype)
-    if perturb_seed is not None:
-        noise = jax.random.uniform(jax.random.PRNGKey(perturb_seed),
-                                   coarse_mesh.p_shape, dtype, 0.0, 1e-7)
-        state = state.replace(p=state.p + noise)
     state, diag, cont_summ = reynolds_continuation_solve(
         coarse_mesh, reynolds_schedule, bc, solve_fn, cfg,
         momentum=momentum, pressure=pressure, loop=loop, state=state,
@@ -171,16 +165,13 @@ def grid_sequence_solve(
     coarsest: int = 32,
     max_levels: int = 6,
     dtype=jnp.float32,
-    perturb_seed: int = None,
     per_level_momentum=None,
 ) -> Tuple[FlowState, object, list]:
     """Solve on a coarse-to-fine mesh ladder, warm-starting each level.
 
     ``solve_fn`` is one of the algorithm entry points (e.g.
     ``algorithms.simple.simple_solve``); ``cfg`` applies at every level
-    (coarse levels are cheap).  ``perturb_seed`` adds O(1e-7) noise to the
-    coarsest initial pressure (benchmark hygiene on runtimes that memoize
-    identical executions).  ``per_level_momentum`` optionally maps
+    (coarse levels are cheap).  ``per_level_momentum`` optionally maps
     nx -> momentum config — after a warm start the fine-level momentum
     system barely changes, so a lighter inner solve (fewer Krylov
     iterations / looser tolerance) can be used there (ROADMAP "momentum-
@@ -196,10 +187,6 @@ def grid_sequence_solve(
                                     height=mesh.height)
         if state is None:
             state = initialize_state(level_mesh, bc, dtype)
-            if perturb_seed is not None:
-                noise = jax.random.uniform(jax.random.PRNGKey(perturb_seed),
-                                           level_mesh.p_shape, dtype, 0.0, 1e-7)
-                state = state.replace(p=state.p + noise)
         else:
             state = prolong_state(state, level_mesh, bc)
         mom = per_level_momentum(nx) if per_level_momentum else momentum

@@ -1,6 +1,6 @@
 """SIMPLE pressure–velocity coupling as one fused, jit-compiled while-loop.
 
-TPU-native rebuild of the reference outer iteration
+JAX rebuild of the reference outer iteration
 (``naviflow_oo/solver/Algorithms/simple.py:78-269``).  The Python
 while-loop + per-iteration native-library calls become a single
 ``jax.lax.while_loop`` whose body is the complete SIMPLE step — momentum
@@ -25,7 +25,6 @@ import dataclasses
 import functools
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 
 from ..core.bc import BoundaryConditions, enforce_pressure_bcs
@@ -34,8 +33,7 @@ from ..core.mesh import StructuredMesh
 from ..core.state import FlowState
 from ..ops.poisson import poisson_coefficients, pressure_rhs
 from ..solvers.dispatch import dispatch_pressure_solve
-from ..solvers.momentum import (JacobiMomentumConfig, solve_momentum_pair,
-                                solve_u_momentum, solve_v_momentum)
+from ..solvers.momentum import JacobiMomentumConfig, solve_momentum_pair
 from ..solvers.pressure import RBGSPressureConfig
 from ..solvers.velocity import update_velocity
 from .base import SolveDiagnostics, StepInfo, build_solver
@@ -59,21 +57,11 @@ class SIMPLEConfig:
     # locks the outer iteration into a boundary limit cycle (residual floor
     # ~5e-3).  Off by default; enable only for reference-parity runs.
     overwrite_boundary_pressure: bool = False
-    # 'auto': fold the d-coefficients + pressure-correction operator into
-    # the strip-fused assembly kernel where it runs (large TPU grids);
-    # 'off' rebuilds them in XLA (paired-measurement / parity escape hatch)
-    fold_poisson: str = "auto"
 
 
 def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
-                     coarse_mode: str = "carry", lagged_rho: bool = False):
+                     coarse_mode: str = "carry"):
     """One SIMPLE outer iteration as a pure function (u, v, p, extra) ->.
-
-    ``lagged_rho``: carry the momentum systems' masked Gershgorin ratio
-    maxima in ``extra`` and run the merged in-kernel-assembling Chebyshev
-    solve (``ops/pallas_asmcheby.py``) — the caller must set this exactly
-    when ``solvers.momentum.asmcheby_enabled`` is True for the mesh dims
-    (``_build_solve`` does), since it changes the carry pytree shape.
 
     ``extra`` is the pressure rel-norm running max; with a lagged-multigrid
     pressure config it additionally carries (age, coarse Stencil9 tuple) so
@@ -91,73 +79,22 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
             pres_cfg, dx=dx, dy=dy, rho=rho, variant=cfg.poisson_variant
         )
 
-    def _fused_step_ok(shape, dtype):
-        """Trace-time gate for the whole-step Pallas kernel
-        (ops/pallas_step.py): one kernel per outer iteration, in-kernel
-        RAP — the latency-bound small-grid fast path."""
-        if (jax.default_backend() != "tpu"
-                or getattr(pres_cfg, "backend", "auto")
-                not in ("auto", "pallas")):
-            return False
-        from ..ops.pallas_step import supports_fused_step
-
-        return supports_fused_step(shape[0], shape[1], cfg, mom_cfg,
-                                   pres_cfg, dtype)
-
     def step(u, v, p, extra):
-        rho_pair = None
-        if lagged_rho:
-            extra, rho_pair = extra
         if lagged:
             p_max_l2, mg_extra = extra
         else:
             p_max_l2 = extra
 
-        if _fused_step_ok(p.shape, p.dtype):
-            from ..ops.pallas_step import fused_simple_step
-
-            (u_new, v_new, p_new, p_max_new, u_norm, v_norm, p_rel,
-             cycles, r_u, r_v, r_p) = fused_simple_step(
-                u, v, p, p_max_l2, dx=dx, dy=dy, rho=rho, mu=mu, bc=bc,
-                simple_cfg=cfg, mom_cfg=mom_cfg, pres_cfg=pres_cfg)
-            info = StepInfo(u_norm=u_norm, v_norm=v_norm, p_norm=p_rel,
-                            inner_iterations=cycles,
-                            r_u=r_u, r_v=r_v, r_p=r_p)
-            # lagged carry passes through untouched (the fused step
-            # rebuilds the coarse hierarchy in-kernel every iteration —
-            # always-fresh operators at in-kernel cost)
-            extra_out = ((p_max_new, (mg_extra[0] + 1, mg_extra[1]))
-                         if lagged else p_max_new)
-            if lagged_rho:  # pragma: no cover - gates are disjoint
-                extra_out = (extra_out, rho_pair)
-            return u_new, v_new, p_new, extra_out, info
-
         p_star = p
-        # pair form: on large TPU grids the two fields' coefficient
-        # assemblies fuse into one strip-blocked pass (pallas_assembly),
-        # which also folds the d-coefficients + pressure-correction
-        # operator (pc is None where the fused assembly did not run);
-        # with the lagged-rho carry the assembly AND the Chebyshev solve
-        # merge into one kernel (pallas_asmcheby) and the coefficient
-        # arrays never touch HBM
-        fold = getattr(cfg, "fold_poisson", "auto") == "auto"
-        res = solve_momentum_pair(
+        ((u_star, d_u, r_u, u_norm),
+         (v_star, d_v, r_v, v_norm)) = solve_momentum_pair(
             u, v, p_star, dx=dx, dy=dy, rho=rho, mu=mu,
             alpha=cfg.alpha_u, bc=bc, cfg=mom_cfg,
-            poisson_variant=(cfg.poisson_variant if fold else None),
-            lagged_rho=rho_pair,
-        ) + (() if fold else (None,))
-        if lagged_rho:
-            ((u_star, d_u, r_u, u_norm),
-             (v_star, d_v, r_v, v_norm), pc, rho_pair_new) = res
-        else:
-            ((u_star, d_u, r_u, u_norm),
-             (v_star, d_v, r_v, v_norm), pc) = res
+        )
 
         b = pressure_rhs(u_star, v_star, dx=dx, dy=dy, rho=rho, pin=pin)
-        if pc is None:
-            pc = poisson_coefficients(d_u, d_v, dx=dx, dy=dy, rho=rho,
-                                      variant=cfg.poisson_variant)
+        pc = poisson_coefficients(d_u, d_v, dx=dx, dy=dy, rho=rho,
+                                  variant=cfg.poisson_variant)
         if lagged:
             coarse = (lg.rebuild(d_u, d_v) if coarse_mode == "rebuild"
                       else mg_extra[1])
@@ -190,8 +127,6 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
             extra_out = (p_max_l2, (mg_extra[0] + 1, coarse))
         else:
             extra_out = p_max_l2
-        if lagged_rho:
-            extra_out = (extra_out, rho_pair_new)
         return u_new, v_new, p_new, extra_out, info
 
     return step
@@ -199,19 +134,11 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
 
 @functools.lru_cache(maxsize=64)
 def _build_solve(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop):
-    from ..solvers.momentum import asmcheby_enabled
-
     dx, dy = mesh.get_cell_sizes()
     rho, mu = fluid.get_density(), fluid.get_viscosity()
     nx, ny = mesh.get_dimensions()
-    # lagged-rho carry for the merged assemble+solve Chebyshev kernel
-    # (requires the poisson fold: pc comes out of the kernel)
-    use_rho = (getattr(cfg, "fold_poisson", "auto") == "auto"
-               and asmcheby_enabled(
-                   nx, ny, mom_cfg,
-                   getattr(mom_cfg, "scheme", "power_law")))
     common = dict(dx=dx, dy=dy, rho=rho, mu=mu, bc=bc, cfg=cfg,
-                  mom_cfg=mom_cfg, pres_cfg=pres_cfg, lagged_rho=use_rho)
+                  mom_cfg=mom_cfg, pres_cfg=pres_cfg)
     step = make_simple_step(**common)
     refresh_step, refresh_every = None, 0
     if uses_lagged_mg(pres_cfg):
@@ -223,13 +150,6 @@ def _build_solve(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop):
         refresh_every = pres_cfg.coarse_rebuild_every
     else:
         extra0_fn = lambda dt: jnp.asarray(0.0, dt)
-    if use_rho:
-        # first-iteration bounds: the conservative clamp ceiling (see
-        # ops/pallas_asmcheby.py docstring)
-        base_extra0 = extra0_fn
-        extra0_fn = lambda dt: (base_extra0(dt),
-                                (jnp.asarray(0.999, dt),
-                                 jnp.asarray(0.999, dt)))
     return build_solver(
         step, max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
         dx=dx, dy=dy, extra0_fn=extra0_fn, loop=loop,
@@ -252,8 +172,8 @@ def simple_solve(
 
     All configuration objects are static: each distinct combination compiles
     one specialized XLA program (cached across calls).  ``loop``: 'fused'
-    (single while-loop program), 'host' (jitted step driven from the host),
-    or 'auto' (fused on CPU/GPU, host on TPU).
+    or 'auto' (single while-loop program), 'host' (jitted step driven from
+    the host), or 'chunked[:K]' (fused chunks with a host hook between).
     """
     fn = _build_solve(mesh, fluid, bc, cfg, momentum, pressure, loop)
     return fn(state.u, state.v, state.p, on_chunk=on_chunk)

@@ -1,6 +1,6 @@
 """SIMPLEC (SIMPLE-Consistent).
 
-TPU-native rebuild of the reference ``SimplecSolver``
+JAX rebuild of the reference ``SimplecSolver``
 (``naviflow_oo/solver/Algorithms/simplec.py``).  Deltas from SIMPLE, all
 preserved:
 
@@ -21,7 +21,6 @@ import dataclasses
 import functools
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 
 from ..core.bc import BoundaryConditions, enforce_pressure_bcs
@@ -30,8 +29,7 @@ from ..core.mesh import StructuredMesh
 from ..core.state import FlowState
 from ..ops.poisson import poisson_coefficients, pressure_rhs
 from ..solvers.dispatch import dispatch_pressure_solve
-from ..solvers.momentum import (JacobiMomentumConfig, solve_momentum_pair,
-                                solve_u_momentum, solve_v_momentum)
+from ..solvers.momentum import JacobiMomentumConfig, solve_momentum_pair
 from ..solvers.pressure import RBGSPressureConfig
 from ..solvers.velocity import update_velocity
 from .base import SolveDiagnostics, StepInfo, build_solver
@@ -74,44 +72,13 @@ def make_simplec_step(*, dx, dy, rho, mu, bc, cfg: SIMPLECConfig, mom_cfg, pres_
             pres_cfg, dx=dx, dy=dy, rho=rho, variant=cfg.poisson_variant
         )
 
-    def _fused_step_ok(shape, dtype):
-        """Trace-time gate for the whole-step Pallas kernel
-        (ops/pallas_step.py): one kernel per outer iteration, in-kernel
-        RAP — the latency-bound small-grid fast path."""
-        if (jax.default_backend() != "tpu"
-                or getattr(pres_cfg, "backend", "auto")
-                not in ("auto", "pallas")):
-            return False
-        from ..ops.pallas_step import supports_fused_step
-
-        return supports_fused_step(shape[0], shape[1], cfg, mom_cfg,
-                                   pres_cfg, dtype, algo="simplec")
-
     def step(u, v, p, extra):
         if lagged:
             alpha_p, prev_res, mg_extra = extra
         else:
             alpha_p, prev_res = extra
 
-        if _fused_step_ok(p.shape, p.dtype):
-            from ..ops.pallas_step import fused_outer_step
-
-            (u_new, v_new, p_new, (alpha_p_n, total, u_res, v_res, p_res),
-             cycles, r_u, r_v, r_p) = fused_outer_step(
-                "simplec", u, v, p, (alpha_p, prev_res), dx=dx, dy=dy,
-                rho=rho, mu=mu, bc=bc, cfg=cfg, mom_cfg=mom_cfg,
-                pres_cfg=pres_cfg)
-            info = StepInfo(u_norm=u_res, v_norm=v_res, p_norm=p_res,
-                            inner_iterations=cycles,
-                            r_u=r_u, r_v=r_v, r_p=r_p)
-            # lagged carry passes through untouched (the fused step
-            # rebuilds the coarse hierarchy in-kernel every iteration)
-            extra_out = ((alpha_p_n, total, (mg_extra[0] + 1, mg_extra[1]))
-                         if lagged else (alpha_p_n, total))
-            return u_new, v_new, p_new, extra_out, info
-
         p_star = p
-        # pair form: fused strip assembly on large TPU grids
         ((u_star, d_u, r_u, _),
          (v_star, d_v, r_v, _)) = solve_momentum_pair(
             u, v, p_star, dx=dx, dy=dy, rho=rho, mu=mu,

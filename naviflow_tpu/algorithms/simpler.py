@@ -1,6 +1,6 @@
 """SIMPLER (SIMPLE-Revised, Patankar).
 
-TPU-native rebuild of the reference ``SimplerSolver``
+JAX rebuild of the reference ``SimplerSolver``
 (``naviflow_oo/solver/Algorithms/simpler.py:95-211``).  Per outer iteration:
 
 1. momentum prediction with the current p (relaxed);
@@ -20,7 +20,6 @@ import dataclasses
 import functools
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 
 from ..core.bc import BoundaryConditions, enforce_pressure_bcs
@@ -29,8 +28,7 @@ from ..core.mesh import StructuredMesh
 from ..core.state import FlowState
 from ..ops.poisson import poisson_coefficients, pressure_rhs
 from ..solvers.dispatch import dispatch_pressure_solve
-from ..solvers.momentum import (JacobiMomentumConfig, solve_momentum_pair,
-                                solve_u_momentum, solve_v_momentum)
+from ..solvers.momentum import JacobiMomentumConfig, solve_momentum_pair
 from ..solvers.pressure import RBGSPressureConfig
 from ..solvers.velocity import update_velocity
 from .base import SolveDiagnostics, StepInfo, build_solver
@@ -53,7 +51,6 @@ def make_simpler_step(*, dx, dy, rho, mu, bc, cfg: SIMPLERConfig, mom_cfg, pres_
         )
 
     def solve_momentum(u, v, p):
-        # pair form: fused strip assembly on large TPU grids
         ((u_star, d_u, r_u, u_norm),
          (v_star, d_v, r_v, v_norm)) = solve_momentum_pair(
             u, v, p, dx=dx, dy=dy, rho=rho, mu=mu, alpha=cfg.alpha_u,
@@ -72,39 +69,11 @@ def make_simpler_step(*, dx, dy, rho, mu, bc, cfg: SIMPLERConfig, mom_cfg, pres_
             variant=cfg.poisson_variant, pin=pin,
         )
 
-    def _fused_step_ok(shape, dtype):
-        """Trace-time gate for the whole-step Pallas kernel
-        (ops/pallas_step.py): one kernel per outer iteration — both
-        momentum solves and both pressure solves, in-kernel RAP — the
-        latency-bound small-grid fast path."""
-        if (jax.default_backend() != "tpu"
-                or getattr(pres_cfg, "backend", "auto")
-                not in ("auto", "pallas")):
-            return False
-        from ..ops.pallas_step import supports_fused_step
-
-        return supports_fused_step(shape[0], shape[1], cfg, mom_cfg,
-                                   pres_cfg, dtype, algo="simpler")
-
     def step(u, v, p, extra):
         if lagged:
             p_max_l2, mg_extra = extra
         else:
             p_max_l2 = extra
-
-        if _fused_step_ok(p.shape, p.dtype):
-            from ..ops.pallas_step import fused_outer_step
-
-            (u_new, v_new, p_new, (p_max_new, u_norm, v_norm, p_rel),
-             cycles, r_u, r_v, r_p) = fused_outer_step(
-                "simpler", u, v, p, (p_max_l2,), dx=dx, dy=dy, rho=rho,
-                mu=mu, bc=bc, cfg=cfg, mom_cfg=mom_cfg, pres_cfg=pres_cfg)
-            info = StepInfo(u_norm=u_norm, v_norm=v_norm, p_norm=p_rel,
-                            inner_iterations=cycles,
-                            r_u=r_u, r_v=r_v, r_p=r_p)
-            extra_out = ((p_max_new, (mg_extra[0] + 1, mg_extra[1]))
-                         if lagged else p_max_new)
-            return u_new, v_new, p_new, extra_out, info
 
         p_old = p
         # 1. momentum prediction (old p)

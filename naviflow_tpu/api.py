@@ -13,7 +13,7 @@ jacobi_cavity_steady_oo.py:38-101``) is::
     result = algorithm.solve(max_iterations=10000, tolerance=1e-3,
                              track_infinity_norm=True)
 
-This module keeps that surface working verbatim on the TPU-native core:
+This module keeps that surface working verbatim on the JAX core:
 solver "objects" are the static config dataclasses under familiar names, and
 the algorithm classes drive the jit-compiled functional solvers, returning a
 :class:`~naviflow_tpu.postprocessing.result.SimulationResult` with the same
@@ -23,7 +23,7 @@ Name mapping for the reference's native-backed solvers:
 
 * ``AMGMomentumSolver`` / ``MatrixMomentumSolver`` / PETSc momentum solvers
   -> matrix-free Jacobi-scaled BiCGSTAB (:class:`KrylovMomentumConfig`) —
-  the TPU-native equivalent of their PyAMG/PETSc/SuperLU inner solves;
+  the matrix-free equivalent of their PyAMG/PETSc/SuperLU inner solves;
 * ``PyAMGSolver`` / ``PreconditionedCGSolver`` (algebraic multigrid)
   -> geometric-multigrid-preconditioned CG (the reference's own top-tier
   configuration, ``geo_multigrid_cg.py``);

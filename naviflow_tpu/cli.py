@@ -77,7 +77,8 @@ def _case_args(p, multi=False):
                         "fixed-point iteration lands — converges unstable "
                         "steady branches (e.g. QUICK at Re>=7500) that "
                         "SIMPLE-family iterations limit-cycle on")
-    p.add_argument("--f64", action="store_true", help="run in float64 (CPU)")
+    p.add_argument("--f64", action="store_true",
+                   help="run in float64 (native on the GPU and the CPU)")
     p.add_argument("--distributed", action="store_true",
                    help="spatial domain decomposition over all local "
                         "devices (shard_map halo exchange; algorithm "

@@ -1,6 +1,6 @@
 """Boundary-condition registry and functional application.
 
-TPU-native rebuild of ``naviflow_oo/constructor/boundary_conditions.py``.
+JAX rebuild of ``naviflow_oo/constructor/boundary_conditions.py``.
 The typed registry (``BoundaryType`` x ``BoundaryLocation``) is preserved, but
 the imperative in-place mutation (``apply_velocity_boundary_conditions``,
 reference :164-260) becomes a *pure function* ``apply_velocity_bcs(u, v, bc)``

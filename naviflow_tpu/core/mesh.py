@@ -1,6 +1,6 @@
 """Structured Cartesian mesh.
 
-TPU-native rebuild of the reference mesh container
+JAX rebuild of the reference mesh container
 (``naviflow_oo/preprocessing/mesh/structured.py:7-44``).  The mesh is a *static*
 (trace-time) object: its dimensions and spacings are Python scalars baked into
 the compiled XLA program, never traced values.  Grid conventions are

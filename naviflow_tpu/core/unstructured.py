@@ -1,7 +1,7 @@
 """Unstructured mesh — placeholder.
 
 Parity marker with the reference's ``preprocessing/mesh/unstructured.py``,
-which is likewise a docstring-only placeholder (SURVEY §2.1).  The TPU-native
+which is likewise a docstring-only placeholder (SURVEY §2.1).  This
 framework targets structured grids; unstructured support would route through
 a compressed-row adjacency + segment-sum formulation.
 """

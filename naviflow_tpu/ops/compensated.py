@@ -1,7 +1,7 @@
 """Compensated (double-single) floating-point evaluation for residuals.
 
-Purpose (VERDICT r1 item 7 / ROADMAP #9): the TPU path is float32, whose
-outer-residual floor measured ~2e-7 — the residual field ``r = src - A x``
+Purpose: the accelerator path is float32, whose outer-residual floor is
+~2e-7 — the residual field ``r = src - A x``
 suffers catastrophic cancellation when the true residual is ~1e-7 of the
 O(1) stencil terms, so 1e-7 convergence targets (reference regime, e.g.
 ``matrix_BiCGSTAB.py:21``) could previously only be demonstrated in f64 on
@@ -93,20 +93,12 @@ def residual_5pt(x, src, a_e, a_w, a_n, a_s, a_p, shifts):
 
 def compensated_norm(x):
     """L2 norm with exact squaring + compensated pairwise accumulation
-    (:func:`fold_dot`; also Mosaic-lowerable for in-kernel use)."""
+    (:func:`fold_dot`)."""
     return jnp.sqrt(fold_dot(x, x))
 
 
 # ---------------------------------------------------------------------------
-# In-kernel (Mosaic-lowerable) compensated reductions
-#
-# Why these exist: the fused whole-algorithm kernels compute their stopping
-# tests and Krylov dots with in-kernel reductions.  Mosaic's `jnp.sum` of a
-# 255^2 f32 array loses enough accuracy (O(n*eps) worst case on 64k
-# elements) that the fused SIMPLE step at 255^2 creeped at ~3.5e-5 instead
-# of converging to 1e-5 (round-2 limitation, pallas_step.py).  XLA's tree
-# reductions on the host path don't have the problem, so fused and XLA
-# iteration counts also drift apart.
+# Compensated pairwise reductions
 #
 # `fold_sum` is a PAIRWISE sum with an explicit compensation channel: each
 # halving fold is a vectorized `two_sum` whose rounding errors accumulate in
@@ -114,15 +106,13 @@ def compensated_norm(x):
 # plain adds on the error channel contribute only O(eps^2)).  The result
 # matches the exact sum to a couple of ulps — accuracy-equivalent to f64
 # accumulation for f32 data — in log2(n) vector ops, all static slices
-# (Mosaic lowers those; no scatter, no dynamic shapes).
+# (no scatter, no dynamic shapes).
 # ---------------------------------------------------------------------------
 
 
 def _mask_overlap(b, axis, n_overlap):
     """Zero the first ``n_overlap`` rows/cols of ``b`` (exact operation —
-    iota-mask ``where``, the Mosaic-lowerable form; ``jnp.pad`` of odd
-    shapes fails to lower in-kernel: 'offset mismatch on non-concat
-    dimension')."""
+    an iota-mask ``where``)."""
     import jax
 
     idx = jax.lax.broadcasted_iota(jnp.int32, b.shape, axis)
@@ -130,12 +120,11 @@ def _mask_overlap(b, axis, n_overlap):
 
 
 def fold_sum(x, err0=None):
-    """Compensated sum of ALL elements of a 2-D array (Mosaic-lowerable).
+    """Compensated sum of ALL elements of a 2-D array.
 
     Ceil-halving folds: the upper half is taken as the LAST ``ceil(n/2)``
     rows (overlapping the lower half by one row when ``n`` is odd, with the
-    overlapped row masked to zero — static slices + iota masks only, which
-    lower in Pallas TPU kernels; no pad/concat).
+    overlapped row masked to zero — static slices + iota masks only).
 
     ``err0``: optional same-shape array added into the compensation channel
     (used by :func:`fold_dot` to seed the TwoProduct tails).
@@ -169,9 +158,3 @@ def fold_dot(a, b):
     p, e = two_prod(a, b)
     return fold_sum(p, err0=e)
 
-
-def fold_norm2(x):
-    """Compensated squared L2 norm (no cancellation, but the accumulation
-    itself must not lose the ~1e-5-relative signal the stopping tests
-    compare against)."""
-    return fold_dot(x, x)

@@ -1,9 +1,8 @@
 """Color-plane (checkerboard) layout for red-black smoothing.
 
-ROADMAP open #1: after the round-3b strip kernels, large-grid smoothing
-is VPU-COMPUTE-bound, and the masked red-black update wastes half its
-arithmetic — each half-sweep evaluates the stencil at EVERY cell and
-selects one color.  Splitting the field into its red ((i+j) even) and
+The masked red-black update wastes half its arithmetic and half its
+bytes — each half-sweep evaluates the stencil at EVERY cell and selects
+one color.  Splitting the field into its red ((i+j) even) and
 black planes of shape (nx, ny/2) makes each half-sweep touch exactly the
 cells it updates: 2x less arithmetic and no color mask.
 
@@ -15,20 +14,18 @@ row, so the planes are rectangular):
 
 Neighbor map (derived in closed form; verified by the tests):
 
-    red (i, jc):  e -> B[i+1, jc]   w -> B[i-1, jc]      (sublane rolls)
-                  n -> B[i, jc + (i%2)]                  (lane roll at odd
+    red (i, jc):  e -> B[i+1, jc]   w -> B[i-1, jc]      (row rolls)
+                  n -> B[i, jc + (i%2)]                  (column roll at odd
                   s -> B[i, jc + (i%2) - 1]               rows, selected
     black (i,jc): e -> R[i+1, jc]   w -> R[i-1, jc]       by row parity)
                   n -> R[i, jc + 1 - (i%2)]
                   s -> R[i, jc - (i%2)]
 
-Everything here is value-level jnp (sublane/lane rolls + row-parity
-selects + trailing-dim reshapes), usable on any backend; the Pallas
-kernels adopt it once the Mosaic probes
-(``benchmarks/mosaic_probe_colorplane.py``) confirm the reshape-based
-split/merge lowers.  Cell-centered restriction and prolongation are also
-plane-friendly (row-pair sums / parity-selected column mixes), so the
-plane layout can persist across an entire fine-level down/up pass.
+Everything here is value-level jnp (row/column rolls + row-parity selects +
+trailing-dim reshapes), usable on any backend.  Cell-centered restriction
+and prolongation are also plane-friendly (row-pair sums / parity-selected
+column mixes), so the plane layout can persist across an entire fine-level
+down/up pass.
 
 Boundary exactness: out-of-range rolls wrap, and the wrapped
 contributions are annihilated by the zero boundary links of the stencil
@@ -39,6 +36,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+
+def _inv_diag(S):
+    c = S[0]
+    safe = jnp.where(jnp.abs(c) < 1e-15, jnp.ones_like(c), c)
+    return 1.0 / safe
 
 
 def _row_parity(m, n, dtype=jnp.bool_):
@@ -96,8 +99,6 @@ class PlaneStencil5:
     neighbor)``) and the raw planes for residuals."""
 
     def __init__(self, st, b):
-        from .pallas_mg import _inv_diag
-
         S = (st.c, st.e, st.w, st.n, st.s)
         invc = _inv_diag(S)
         self.c = split_planes(st.c)
@@ -111,17 +112,6 @@ class PlaneStencil5:
         self.wh = split_planes(st.w * invc)
         self.nh = split_planes(st.n * invc)
         self.sh = split_planes(st.s * invc)
-        # cells with a ZERO diagonal (the consistent variant's corner
-        # cells — no face links at all) break the normalized-form
-        # residual r = c*(bh - p - sum(Lh*nbr)) used by the plane strip
-        # kernels (ops/pallas_plane.py): c == 0 annihilates the b term
-        # that the raw-form residual keeps.  Precompute the restricted
-        # correction ONCE per solve; the kernel wrapper adds it to its
-        # coarse output.
-        zR = jnp.abs(self.c[0]) < 1e-15
-        zB = jnp.abs(self.c[1]) < 1e-15
-        self.rc_zdiag = plane_restrict_cc(jnp.where(zR, self.b[0], 0.0),
-                                          jnp.where(zB, self.b[1], 0.0))
 
 
 def plane_rb_sweep(R, B, ps: PlaneStencil5):
@@ -156,15 +146,15 @@ def plane_residual(R, B, ps: PlaneStencil5):
 def plane_restrict_cc(rR, rB):
     """Cell-centered 2x2-mean restriction directly from planes to the
     STANDARD coarse layout: coarse[I, J] = mean of fine rows 2I, 2I+1 at
-    lane J of both planes (row-pair sums only — no lane ops)."""
+    column J of both planes (row-pair sums only — no column ops)."""
     s = rR + rB
     return 0.5 * (s[0::2] + s[1::2]) * 0.5
 
 
 def plane_prolong_cc(ec):
     """Clamped bilinear cell-centered prolongation from the STANDARD
-    coarse layout directly into correction planes (row prolongation on
-    sublanes; the column mix is selected by row parity, since a fine
+    coarse layout directly into correction planes (row prolongation first;
+    the column mix is selected by row parity, since a fine
     cell's column parity within its row equals the row parity for red
     and its complement for black)."""
     from .transfer_cc import _prolong_ax0
@@ -187,7 +177,7 @@ def plane_prolong_cc(ec):
 # The point of the layout is AMORTIZATION: the splits (b + the five stencil
 # arrays) happen once per solve, the merge once, and every smoothing
 # half-sweep in between touches half-size arrays with no color-masked waste
-# — halving both the streamed bytes and the VPU arithmetic of the dominant
+# — halving both the streamed bytes and the arithmetic of the dominant
 # fine-level work.  These helpers keep (R, B) as the fine-level state so
 # the solve's while_loop never materializes the interleaved p.
 # ---------------------------------------------------------------------------

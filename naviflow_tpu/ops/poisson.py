@@ -1,6 +1,6 @@
 """Pressure-correction Poisson operator, RHS, and divergence.
 
-This is THE hot kernel of the framework — the TPU-native rebuild of the
+This is THE hot kernel of the framework — the JAX rebuild of the
 reference's matrix-free variable-coefficient 5-point operator
 (``naviflow_oo/solver/pressure_solver/helpers/matrix_free.py:6-135``) and its
 explicit-matrix twin (``helpers/coeff_matrix.py:6-121``).  Semantics preserved

@@ -1,6 +1,6 @@
 """Power-law discretization of the staggered momentum equations.
 
-TPU-native, fully vectorized rebuild of Patankar's power-law scheme as
+Fully vectorized rebuild of Patankar's power-law scheme as
 implemented by the reference
 (``naviflow_oo/solver/momentum_solver/discretization/power_law.py``):
 
@@ -17,7 +17,7 @@ implemented by the reference
   unconditionally.  This is numerically identical whenever the boundary
   values of the iterate equal their BC values (always true here, BCs are
   re-applied each step) and makes the interior system self-contained, which
-  the TPU solvers rely on.
+  the matrix-free solvers rely on.
 
 The reference's per-edge Python loops become masked whole-array updates;
 XLA fuses the entire assembly into one elementwise pass over the grid.

@@ -3,7 +3,7 @@
 These are the building blocks shared by the momentum and pressure operators.
 Everything is expressed as whole-array shifted reads with zero padding —
 XLA fuses the shifts, multiplies and adds into a single elementwise kernel,
-which is the TPU-friendly formulation of the reference's sliced NumPy
+which is the data-parallel formulation of the reference's sliced NumPy
 stencils (``helpers/matrix_free.py:100-133``,
 ``momentum_solver/matrix_free_momentum.py:49-79``).
 
@@ -107,9 +107,7 @@ def where_set(x, val, *, rows=None, cols=None):
 
     ``rows``/``cols``: an int index, a ``(lo, hi)`` half-open range, or
     ``None`` (whole axis).  Same values as the scatter form, but lowers as
-    pure elementwise select — Pallas TPU has no scatter lowering, and this
-    form is what lets the whole assembly/BC/correction path run inside
-    fused whole-step kernels.  XLA compiles both forms identically.
+    a pure elementwise select that fuses with its neighbours.
     """
     return jnp.where(_edit_mask(x.shape, rows, cols), _col_val(val, cols), x)
 

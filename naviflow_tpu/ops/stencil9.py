@@ -142,9 +142,8 @@ def comb_select(images, ii, jj, di: int, dj: int):
     """Read the comb image value for neighbor offset (di, dj) at each cell:
     ``images[(ii+di)%3, (jj+dj)%3, local_cell]`` — without a gather.
 
-    The naive advanced-indexing form lowers to ``gather``, which TPUs
-    execute catastrophically (measured: the gather-based RAP rebuild at
-    1024^2 cost 4.5 ms against a sub-ms roofline, round-3 profiling).
+    The naive advanced-indexing form lowers to ``gather``; this form is
+    pure elementwise selects that fuse with the rest of the RAP build.
     Cell (i, j) needs image class ``((ii+di)%3, (jj+dj)%3)``; that equals
     (a, b) exactly where ``ii%3 == (a-di)%3`` and ``jj%3 == (b-dj)%3``, so
     nine masked selects recover the same elements bit-for-bit.

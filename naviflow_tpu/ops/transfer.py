@@ -1,7 +1,7 @@
 """Multigrid transfer operators (restriction / prolongation / coefficient
 restriction) as static-slice jnp kernels.
 
-TPU-native rebuild of ``naviflow_oo/solver/pressure_solver/helpers/
+JAX rebuild of ``naviflow_oo/solver/pressure_solver/helpers/
 multigrid_helpers.py``.  Grid convention: levels are ``2**k - 1`` cells per
 axis; coarse cell (I, J) coincides with fine cell (2I+1, 2J+1), so
 ``nc = (nf - 1) // 2``.
@@ -16,16 +16,12 @@ Semantics preserved:
 * harmonic-mean d-coefficient restriction with the 0.25 Poisson rescale and
   boundary injection (reference :196-329).
 
-TPU form (round-3 rewrite): every transfer here is a separable tensor
-product of 1-D operators, applied as an axis-0 (sublane) strided op plus a
-transpose sandwich for axis 1.  Minor-axis strided slicing and
-``.at[::2].set`` interleaves force lane shuffles / scatters that TPU lowers
-catastrophically (measured 12-196 ms per restrict+prolong pair at
-1024^2-4096^2, ``benchmarks/transfer_variants.py``); the sandwich form is
-0.024-1.6 ms — it is what keeps the odd-grid (511^2) fine levels off the
-scatter path.  Boundary-slab copying folds into the 1-D operators (first /
-last fine row equals the adjacent interior row, which is exactly the
-coarse endpoint), so results match the reference construction.
+Array form: every transfer here is a separable tensor product of 1-D
+operators, applied as an axis-0 strided op plus a transpose sandwich for
+axis 1, so no transfer lowers to a minor-axis strided slice or a
+``.at[::2].set`` scatter.  Boundary-slab copying folds into the 1-D
+operators (first / last fine row equals the adjacent interior row, which is
+exactly the coarse endpoint), so results match the reference construction.
 """
 
 from __future__ import annotations
@@ -38,7 +34,7 @@ def coarse_size(nf: int) -> int:
 
 
 def _interleave_ax0(a, b):
-    """Rows a[0], b[0], a[1], b[1], ... (axis-0 interleave, sublane only)."""
+    """Rows a[0], b[0], a[1], b[1], ... (axis-0 interleave only)."""
     return jnp.stack([a, b], axis=1).reshape(2 * a.shape[0], a.shape[1])
 
 

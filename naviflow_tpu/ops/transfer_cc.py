@@ -14,15 +14,10 @@ we coarsen cell-centered: ``nc = nf / 2``, coarse cell (I, J) covers the
   vertex path (``ops/stencil9.galerkin_coarsen`` works with any linear R/P
   whose composite column support stays within one coarse ring).
 
-TPU form (round-3 rewrite): both operators are separable tensor products,
-applied as an axis-0 (sublane) strided op followed by a transpose sandwich
-for axis 1.  Lane-dimension (minor-axis) strided access is catastrophically
-slow on TPU — measured at 1024^2 per restrict+prolong pair
-(benchmarks/transfer_variants.py): minor-axis strided slicing 11.9 ms,
-reshape/interleave 0.80 ms, MXU tensor-product matmul 0.093 ms,
-transpose sandwich 0.024 ms.  The sandwich also wins at 2048/4096
-(0.12 / 1.64 ms vs 4.6 / 19.3 reshape) and is what makes the V-cycle
-bandwidth-bound rather than shuffle-bound at large grids.
+Array form: both operators are separable tensor products, applied as an
+axis-0 strided op followed by a transpose sandwich for axis 1 (no
+minor-axis strided access).  Whether the transposes beat direct strided
+slices on the GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -31,7 +26,7 @@ import jax.numpy as jnp
 
 
 def _restrict_ax0(y):
-    """(2m, n) -> (m, n): average adjacent row pairs (sublane stride only)."""
+    """(2m, n) -> (m, n): average adjacent row pairs (axis-0 stride only)."""
     return 0.5 * (y[0::2] + y[1::2])
 
 

@@ -1,17 +1,17 @@
-"""Spatial domain decomposition over a TPU device mesh.
+"""Spatial domain decomposition over a device mesh.
 
 The reference has no distributed computing (SURVEY §2.3 — a shell-script job
-farm at most).  Here large grids shard across devices the TPU-native way:
+farm at most).  Here large grids shard across devices:
 
 * a 2-D ``jax.sharding.Mesh`` with axes ``('x', 'y')``;
 * staggered fields placed with ``NamedSharding(P('x', 'y'))`` — u, v, p all
   split along both spatial axes;
 * the solver code is *unchanged*: every stencil is written as whole-array
   shifted reads (``ops/stencil.py``), so XLA's SPMD partitioner inserts the
-  1-cell halo exchanges (collective-permutes over ICI) automatically, and
-  every ``jnp.linalg.norm`` / ``jnp.vdot`` reduction becomes a cross-device
-  ``psum``.  This is the GSPMD formulation of the halo-exchange domain
-  decomposition described in SURVEY §7 step 7.
+  1-cell halo exchanges (collective-permutes over the device interconnect)
+  automatically, and every ``jnp.linalg.norm`` / ``jnp.vdot`` reduction
+  becomes a cross-device ``psum``.  This is the GSPMD formulation of the
+  halo-exchange domain decomposition described in SURVEY §7 step 7.
 
 Tests run on ``--xla_force_host_platform_device_count=8`` virtual CPU
 devices; the driver's ``dryrun_multichip`` uses the same entry points.
@@ -33,18 +33,17 @@ def initialize_pod(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> bool:
-    """Multi-process (multi-host pod) bring-up — ROADMAP #11.
+    """Multi-process (multi-host) bring-up — ROADMAP #11.
 
-    On a real TPU pod each host runs one process; ``jax.distributed
+    On a multi-host cluster each host runs one process; ``jax.distributed
     .initialize`` wires them into one JAX runtime, after which
-    ``jax.devices()`` spans the whole pod and every entry point here
+    ``jax.devices()`` spans every host and every entry point here
     (``make_device_mesh``, ``distributed_simple_solve``) works unchanged —
     the shard_map code is topology-agnostic.
 
     Arguments default to the standard env vars
     (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-    ``JAX_PROCESS_ID``); on TPU pods with no explicit configuration JAX
-    can also auto-detect from the TPU metadata.  Returns ``True`` when a
+    ``JAX_PROCESS_ID``).  Returns ``True`` when a
     multi-process runtime was initialized, ``False`` for the single-process
     (single-host) case, where this is a no-op.
     """
@@ -72,7 +71,7 @@ def make_device_mesh(
     """Build a 2-D ('x', 'y') device mesh from the available devices.
 
     ``shape`` defaults to the most-square factorization of ``n_devices`` so
-    halo surface area (ICI traffic) is minimized.
+    halo surface area (interconnect traffic) is minimized.
     """
     devices = jax.devices()[: (n_devices or len(jax.devices()))]
     n = len(devices)

@@ -1,6 +1,6 @@
 """Simulation result container.
 
-TPU-native rebuild of the reference ``SimulationResult``
+JAX rebuild of the reference ``SimulationResult``
 (``naviflow_oo/postprocessing/simulation_result.py``): holds the final
 fields, named residual histories (``add_history``/``get_history``, reference
 :67-94), divergence diagnostics (:152-184), Ghia validation (:186-264) and

@@ -3,11 +3,11 @@
 The reference tunes its Jacobi/red-black-GS smoother relaxation factors by
 power-iteration spectral-radius studies
 (``pressure_solver/helpers/spectral_radius_damping.py`` and the SR_*.pdf
-artifacts).  On TPU the natural upgrade (SURVEY §7) is the Chebyshev
-smoother: a fixed-degree polynomial in D^-1 A needs no sequential sweeps or
-color masking at all — ``degree`` fused matvecs per application — and its
-optimal coefficients follow directly from the same spectral bounds the
-reference estimated empirically.
+artifacts).  On a data-parallel device the natural upgrade (SURVEY §7) is
+the Chebyshev smoother: a fixed-degree polynomial in D^-1 A needs no
+sequential sweeps or color masking at all — ``degree`` fused matvecs per
+application — and its optimal coefficients follow directly from the same
+spectral bounds the reference estimated empirically.
 
 * :func:`estimate_lambda_max` — power iteration on D^-1 A (the jitted analog
   of the reference's ``find_optimal_gauss_seidel_omega_matrix_free``).

@@ -1,7 +1,7 @@
 """Matrix-free Krylov pressure solvers: CG, preconditioned CG, BiCGSTAB,
 and GMG-preconditioned CG.
 
-TPU-native rebuild of the reference Krylov paths — SciPy ``cg``/``bicgstab``
+JAX rebuild of the reference Krylov paths — SciPy ``cg``/``bicgstab``
 on explicit CSR or LinearOperators, optionally preconditioned by SuperLU ILU,
 PyAMG, or geometric-multigrid cycles (``matrix_BiCGSTAB.py``,
 ``matrix_free_BiCGSTAB.py``, ``preconditioned_cg_solver.py``,
@@ -33,6 +33,15 @@ import jax.numpy as jnp
 from ..ops.poisson import PoissonCoeffs, apply_poisson, poisson_diagonal
 from .multigrid import MultigridConfig, build_levels, make_preconditioner
 from .pressure import PressureSolveInfo
+
+# Every contraction here is pinned to full float32 precision: on the GPU an
+# unpinned float32 dot may run in TF32 (~3 decimal digits), which these
+# recurrences do not survive.
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _vdot(a, b):
+    return jnp.vdot(a, b, precision=_HI)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +104,7 @@ def _pcg(b, A, M, x0, tol, maxiter):
     r = b - A(x)
     z = M(r)
     p = z
-    rz = jnp.vdot(r, z)
+    rz = _vdot(r, z)
     bnorm = jnp.linalg.norm(b)
     tol_abs = tol * jnp.where(bnorm > 0, bnorm, 1.0)
 
@@ -108,19 +117,19 @@ def _pcg(b, A, M, x0, tol, maxiter):
     def body(carry):
         x, r, z, p, rz, k, ok = carry
         Ap = A(p)
-        pAp = jnp.vdot(p, Ap)
+        pAp = _vdot(p, Ap)
         # breakdown guard: near-zero or negative curvature (f32 cancellation
         # on the singular system) ends the iteration instead of producing
         # a huge step
-        good = pAp > eps * jnp.vdot(p, p)
+        good = pAp > eps * _vdot(p, p)
         alpha = jnp.where(good, rz / jnp.where(pAp == 0, 1.0, pAp), 0.0)
         x = x + alpha * p
         r_new = r - alpha * Ap
         z_new = M(r_new)
-        rz_new = jnp.vdot(r_new, z_new)
+        rz_new = _vdot(r_new, z_new)
         # Polak–Ribière (flexible) beta
         beta = jnp.where(
-            jnp.abs(rz) > eps, jnp.vdot(r_new - r, z_new) / rz, 0.0
+            jnp.abs(rz) > eps, _vdot(r_new - r, z_new) / rz, 0.0
         )
         p = z_new + beta * p
         return (x, r_new, z_new, p, rz_new, k + 1, good)
@@ -149,21 +158,22 @@ def _bicgstab(b, A, M, x0, tol, maxiter):
 
     def body(carry):
         x, r, rho, alpha, omega, v, p, k, ok = carry
-        rho_new = jnp.vdot(rhat, r)
+        rho_new = _vdot(rhat, r)
         good = (jnp.abs(rho) > eps) & (jnp.abs(omega) > eps)
         beta = jnp.where(good, (rho_new / jnp.where(rho == 0, 1.0, rho))
                          * (alpha / jnp.where(omega == 0, 1.0, omega)), 0.0)
         p = r + beta * (p - omega * v)
         ph = M(p)
         v = A(ph)
-        denom = jnp.vdot(rhat, v)
+        denom = _vdot(rhat, v)
         good = good & (jnp.abs(denom) > eps)
         alpha = jnp.where(good, rho_new / jnp.where(denom == 0, 1.0, denom), 0.0)
         s = r - alpha * v
         sh = M(s)
         t = A(sh)
-        tt = jnp.vdot(t, t)
-        omega_new = jnp.where(tt > eps, jnp.vdot(t, s) / jnp.where(tt == 0, 1.0, tt), 0.0)
+        tt = _vdot(t, t)
+        omega_new = jnp.where(
+            tt > eps, _vdot(t, s) / jnp.where(tt == 0, 1.0, tt), 0.0)
         x = x + alpha * ph + omega_new * sh
         r = s - omega_new * t
         return (x, r, rho_new, alpha, omega_new, v, p, k + 1, good)
@@ -185,12 +195,12 @@ def gmres_solve(b, A, M, x0, tol, maxiter, restart):
     SQUARE the condition number, which in f32 on the hard Newton saddle-point
     systems (``algorithms/newton.py``: H genuinely ill-conditioned near
     stagnation) returned meaningless y and stalled the whole outer Newton
-    iteration — measured round 4 on TPU at 255², fixed by this lstsq.
+    iteration at 255², fixed by this lstsq.
     On happy breakdown (h_{j+1,j} ≈ 0) the next basis vector is zeroed so
     trailing columns carry no junk; the SVD cutoff handles the resulting
     rank deficiency exactly.
 
-    All reductions are ``jnp.vdot``/``jnp.linalg.norm`` over the field, so on
+    All reductions are ``_vdot``/``jnp.linalg.norm`` over the field, so on
     a sharded mesh they lower to psum collectives.  Returns ``(x, r, k)``
     with k = total Arnoldi steps taken (multiples of m).
     """
@@ -213,7 +223,7 @@ def gmres_solve(b, A, M, x0, tol, maxiter, restart):
 
             def mgs(i, acc):
                 w, hcol = acc
-                hij = jnp.vdot(V[i], w) * (i <= j)
+                hij = _vdot(V[i], w) * (i <= j)
                 return (w - hij * V[i], hcol.at[i].set(hij))
 
             w, hcol = jax.lax.fori_loop(0, m, mgs, (w, jnp.zeros(m + 1, dtype)))
@@ -232,7 +242,7 @@ def gmres_solve(b, A, M, x0, tol, maxiter, restart):
         # min_y || beta e1 - H y ||: SVD least squares (rank-robust in f32)
         e1 = jnp.zeros(m + 1, dtype).at[0].set(beta)
         y, _, _, _ = jnp.linalg.lstsq(H, e1)
-        dx = M(jnp.tensordot(y, V[:m], axes=1))
+        dx = M(jnp.tensordot(y, V[:m], axes=1, precision=_HI))
         x = x + dx
         return x, b - A(x)
 

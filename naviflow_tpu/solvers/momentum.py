@@ -1,10 +1,10 @@
 """Momentum predictor solvers (u*, v* from the linearized momentum equations).
 
-TPU-native rebuild of the reference momentum-solver family.  The reference
+JAX rebuild of the reference momentum-solver family.  The reference
 delegates its inner linear solves to native libraries (PyAMG C++, PETSc C,
 SuperLU ILU — ``AMG_solver.py``, ``matrix_momentum_solver.py``,
 ``matrix_free_momentum.py``); here each solver is a fused, jit-compiled
-matrix-free iteration on the 5-point stencil — the TPU-native equivalent.
+matrix-free iteration on the 5-point stencil.
 
 Contract preserved from the reference
 (``base_momentum_solver.py:144-204``): each solve returns
@@ -41,7 +41,6 @@ from ..ops.powerlaw import (
     v_momentum_coefficients,
 )
 from ..ops.stencil import (
-    StencilCoeffs,
     apply_stencil,
     interior_mask,
     neighbor_sum,
@@ -82,14 +81,14 @@ class JacobiMomentumConfig:
     n_sweeps: int = 1
     scheme: str = "power_law"  # 'power_law' | 'quick' | 'luds' | 'upwind'
     # error-free residual evaluation (ops/compensated.py) — enables 1e-7
-    # outer targets on the f32 TPU path at ~zero cost (bandwidth-bound op)
+    # outer targets on the f32 path (one bandwidth-bound pass)
     compensated_residual: bool = False
     kind: str = "jacobi"
 
 
 @dataclasses.dataclass(frozen=True)
 class RBGSMomentumConfig:
-    """Fixed-sweep red-black Gauss-Seidel momentum solve — a TPU-friendly
+    """Fixed-sweep red-black Gauss-Seidel momentum solve — a parallel
     stand-in for the reference's sequential-GS options."""
 
     n_sweeps: int = 2
@@ -103,11 +102,8 @@ class ChebyshevMomentumConfig:
     """Reduction-LIGHT momentum inner solve: fixed-degree Chebyshev
     iteration on the Jacobi-preconditioned relaxed momentum system.
 
-    Round-4/5 phase attribution (``benchmarks/profile_phases.py``,
-    ``probe_step_parts.py``) pinned the large-grid SIMPLE step on the
-    momentum BiCGSTAB's global reductions: every Krylov iteration is
-    4 dots + 2 norms = full-array pipeline barriers, and at 2048^2 the
-    two momentum solves cost 11.2 ms of a 15.4 ms step-body.  The
+    The momentum BiCGSTAB spends each Krylov iteration on 4 dots + 2
+    norms, each a full-array reduction that serializes the step.  The
     relaxed momentum system is strongly diagonally dominant (Patankar
     relaxation divides the diagonal by ``alpha``: the Jacobi iteration
     ratio is bounded by ~``alpha`` + flux-imbalance), so a fixed-degree
@@ -118,7 +114,7 @@ class ChebyshevMomentumConfig:
     vs BiCGSTAB's 6/iteration); cf. the reference's own fixed-sweep
     ``jacobi_solver.JacobiMomentumSolver`` (the role model) and its
     omega-tuning studies (``spectral_radius_damping.py``), whose
-    TPU-native upgrade this is (SURVEY §7)."""
+    reduction-free upgrade this is (SURVEY §7)."""
 
     degree: int = 6
     # spectral-bound safety margin on the Gershgorin radius (the momentum
@@ -127,22 +123,6 @@ class ChebyshevMomentumConfig:
     bound_margin: float = 1.05
     scheme: str = "power_law"
     compensated_residual: bool = False
-    # 'auto'/'pallas': strip-blocked VMEM-resident solve+residual kernel
-    # (ops/pallas_cheby.py) on large TPU grids; 'xla' forces the composed
-    # whole-array iteration (parity escape hatch)
-    backend: str = "auto"
-    # 'auto': take the Gershgorin ratio max from the fused assembly
-    # kernel's folded partial maxima when that kernel runs (saves two
-    # five-array HBM reads + two reduction barriers per outer iteration);
-    # 'off' recomputes the bounds in XLA (parity escape hatch)
-    assembly_bounds: str = "auto"
-    # 'auto': merge the coefficient assembly INTO the solve kernel on
-    # large TPU grids (ops/pallas_asmcheby.py — the 16 coefficient
-    # arrays never touch HBM; Chebyshev interval from the previous
-    # outer iteration's Gershgorin maxima, carried by the SIMPLE loop);
-    # 'off' keeps the separate assembly + solve kernels (paired-
-    # measurement / parity escape hatch)
-    merged_assembly: str = "auto"
     kind: str = "chebyshev"
 
 
@@ -191,17 +171,9 @@ class KrylovMomentumConfig:
     max_iterations: int = 50
     scheme: str = "power_law"
     compensated_residual: bool = False
-    # evaluate the Krylov dots with compensated pairwise reductions; set
-    # automatically when the solve is traced inside a fused Pallas kernel
-    # (see _bicgstab_masked docstring) — not needed on the XLA path
-    compensated_dots: bool = False
-    # 'auto'/'pallas': on TPU, run the whole masked BiCGSTAB as ONE fused
-    # VMEM-resident kernel (ops/pallas_krylov.py) when the field fits;
-    # 'xla' forces the composed while_loop
-    backend: str = "auto"
-    # 'auto': where the fused per-field kernel does NOT fit (large grids),
-    # batch the u and v solves into one Krylov loop — half the reduction
-    # barriers (_bicgstab_pair_masked).  'off' forces sequential solves.
+    # 'auto': batch the u and v solves of five-point power-law systems
+    # into one Krylov loop — half the serialized reduction rounds
+    # (_bicgstab_pair_masked).  'off' forces sequential solves.
     batch_pair: str = "auto"
     kind: str = "bicgstab"
 
@@ -253,19 +225,6 @@ def _rbgs_sweeps(x0, c, mask, n_sweeps: int, omega: float):
     return jax.lax.fori_loop(0, n_sweeps, body, x0)
 
 
-def _bounds_from_rho(rho_raw, margin: float):
-    """Chebyshev interval scalars from the raw masked Gershgorin ratio
-    maximum (shared by :func:`_chebyshev_bounds` and the in-assembly
-    folded maxima of ``ops/pallas_assembly.fused_assembly_pair``)."""
-    rho = jnp.minimum(rho_raw * margin, 0.999)
-    lmin = 1.0 - rho
-    lmax = 1.0 + rho
-    theta = (lmax + lmin) / 2.0
-    delta = (lmax - lmin) / 2.0
-    sigma1 = theta / delta
-    return theta, delta, sigma1
-
-
 def _chebyshev_bounds(c, mask, margin: float = 1.05):
     """Spectral interval for ``D^-1 A`` from Gershgorin: every disk is
     centered at 1 with radius ``sum(a_nb)/a_p`` (power-law neighbor
@@ -281,15 +240,21 @@ def _chebyshev_bounds(c, mask, margin: float = 1.05):
         nb_abs = (jnp.abs(c.a_e) + jnp.abs(c.a_w)
                   + jnp.abs(c.a_n) + jnp.abs(c.a_s))
     ratio = jnp.where(mask, nb_abs / safe_ap, 0.0)
-    return _bounds_from_rho(jnp.max(ratio), margin)
+    rho = jnp.minimum(jnp.max(ratio) * margin, 0.999)
+    lmin = 1.0 - rho
+    lmax = 1.0 + rho
+    theta = (lmax + lmin) / 2.0
+    delta = (lmax - lmin) / 2.0
+    sigma1 = theta / delta
+    return theta, delta, sigma1
 
 
-def _chebyshev_iterate(x0, c, mask, theta, delta, sigma1, degree: int):
-    """The reduction-free part of the Chebyshev solve: ``degree`` fused
-    stencil applies + axpys (standard D'Azevedo/hypre three-term
-    recurrence), given precomputed interval scalars.  Shared verbatim by
-    the XLA path and the strip-blocked Pallas kernel
-    (``ops/pallas_cheby.py``) so the two trace identical arithmetic."""
+def _chebyshev_masked(x0, c, mask, degree: int, margin: float = 1.05):
+    """Fixed-degree Chebyshev iteration on the masked momentum system,
+    preconditioned by the diagonal (see :class:`ChebyshevMomentumConfig`):
+    ``degree`` fused stencil applies + axpys (standard D'Azevedo/hypre
+    three-term recurrence) after one Gershgorin bound."""
+    theta, delta, sigma1 = _chebyshev_bounds(c, mask, margin)
     dtype = x0.dtype
     mask_f = mask.astype(dtype)
     safe_ap = jnp.where(c.a_p == 0, jnp.ones_like(c.a_p), c.a_p)
@@ -313,37 +278,11 @@ def _chebyshev_iterate(x0, c, mask, theta, delta, sigma1, degree: int):
     return jnp.where(mask, x, x0)
 
 
-def _chebyshev_masked(x0, c, mask, degree: int, margin: float = 1.05,
-                      bounds=None):
-    """Fixed-degree Chebyshev iteration on the masked momentum system,
-    preconditioned by the diagonal (see :class:`ChebyshevMomentumConfig`).
-    ``bounds``: optional precomputed ``(theta, delta, sigma1)`` (the
-    in-assembly Gershgorin fold) — skips the five-array read + max."""
-    if bounds is None:
-        bounds = _chebyshev_bounds(c, mask, margin)
-    theta, delta, sigma1 = bounds
-    return _chebyshev_iterate(x0, c, mask, theta, delta, sigma1, degree)
-
-
-def _bicgstab_masked(x0, c, mask, tol: float, maxiter: int,
-                     compensated_dots: bool = False):
+def _bicgstab_masked(x0, c, mask, tol: float, maxiter: int):
     """Matrix-free BiCGSTAB restricted to masked nodes (boundary nodes are
-    held fixed; Practice-B folding makes the masked system self-contained).
-
-    ``compensated_dots``: evaluate the Krylov dots/norms with the pairwise
-    two-sum reductions of ``ops/compensated.py``.  Set when this function is
-    traced INSIDE a Pallas kernel (``ops/pallas_step.py``): Mosaic's
-    sequential in-kernel reductions lose O(n*eps) on 64k-element arrays,
-    which weakened the stopping tests enough that the 255^2 fused step
-    creeped at ~3.5e-5.  The XLA path keeps plain ``jnp.sum`` (tree
-    reductions are already accurate, and fold passes would cost HBM
-    bandwidth there)."""
+    held fixed; Practice-B folding makes the masked system self-contained)."""
     mask_f = mask.astype(x0.dtype)
-    if compensated_dots:
-        from ..ops.compensated import fold_dot
-        dot = fold_dot
-    else:
-        dot = lambda a, b: jnp.sum(a * b)
+    dot = lambda a, b: jnp.sum(a * b)
 
     def A(x):
         return _apply(x, c) * mask_f
@@ -407,16 +346,12 @@ def _bicgstab_pair_masked(xu0, cu, mask_u, xv0, cv, mask_v,
                           tol: float, maxiter: int):
     """The u and v momentum solves BATCHED into one Krylov loop.
 
-    The two predictor systems are independent, but running them
-    sequentially doubles the serialized reduction rounds — and at
-    1024^2+ the masked BiCGSTAB is reduction-latency-bound, not
-    FLOP-bound (measured round 4, ``benchmarks/profile_phases.py``:
-    6.8 ms of an 18.1 ms step at 2048^2 is the two Krylov loops; each
-    iteration's 4 dots + 2 norms are full-array pipeline barriers).
-    Stacking the padded systems into a ``(2, nx+1, ny+1)`` batch halves
-    the number of barriers: every dot becomes one fused reduction to a
-    ``(2,)`` vector and every scalar of the recurrence becomes a
-    2-vector broadcast.
+    The two predictor systems are independent, but running them sequentially
+    doubles the serialized reduction rounds: each iteration's 4 dots + 2
+    norms are full-array reductions that the next operation waits on.
+    Stacking the padded systems into a ``(2, nx+1, ny+1)`` batch halves the
+    number of barriers: every dot becomes one fused reduction to a ``(2,)``
+    vector and every scalar of the recurrence becomes a 2-vector broadcast.
 
     Per-system arithmetic is IDENTICAL to :func:`_bicgstab_masked`
     (padded cells are masked out of the operator and carry zeros through
@@ -532,7 +467,9 @@ def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float):
     x = x0 * mask_f
     r = b - A(x)
     P = jax.random.normal(jax.random.PRNGKey(0), (s,) + x0.shape, dtype)
-    pdot = lambda a, w: jnp.einsum("ij,ij->", a, w)
+    # HIGHEST: a float32 contraction may otherwise run in TF32 on the GPU
+    hi = jax.lax.Precision.HIGHEST
+    pdot = lambda a, w: jnp.einsum("ij,ij->", a, w, precision=hi)
 
     U = jnp.zeros((s,) + x0.shape, dtype)
     G = jnp.zeros((s,) + x0.shape, dtype)
@@ -550,8 +487,8 @@ def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float):
         f = jnp.stack([pdot(P[i], r) for i in range(s)])
         for k in range(s):  # static unroll
             ck = jnp.linalg.solve(Ms[k:, k:], f[k:])
-            v = r - jnp.einsum("m,mij->ij", ck, G[k:])
-            u_new = jnp.einsum("m,mij->ij", ck, U[k:]) + om * v
+            v = r - jnp.einsum("m,mij->ij", ck, G[k:], precision=hi)
+            u_new = jnp.einsum("m,mij->ij", ck, U[k:], precision=hi) + om * v
             g_new = A(u_new)
             for i in range(k):
                 alpha = pdot(P[i], g_new) / jnp.where(Ms[i, i] == 0, 1e-30, Ms[i, i])
@@ -586,28 +523,17 @@ def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float):
     return jnp.where(mask, x, x0)
 
 
-def _inner_solve(x0, c_rel, mask, cfg, bounds=None):
+def _inner_solve(x0, c_rel, mask, cfg):
     if cfg.kind == "jacobi":
         return _jacobi_sweeps(x0, c_rel, mask, cfg.n_sweeps)
     if cfg.kind == "rbgs":
         return _rbgs_sweeps(x0, c_rel, mask, cfg.n_sweeps, cfg.omega)
     if cfg.kind == "chebyshev":
         return _chebyshev_masked(x0, c_rel, mask, cfg.degree,
-                                 cfg.bound_margin, bounds=bounds)
+                                 cfg.bound_margin)
     if cfg.kind == "bicgstab":
-        if (getattr(cfg, "backend", "auto") in ("auto", "pallas")
-                and not isinstance(c_rel, MomentumCoeffs9)
-                and jax.default_backend() == "tpu"):
-            from ..ops.pallas_krylov import (bicgstab_momentum_pallas,
-                                            supports_fused_bicgstab)
-
-            if supports_fused_bicgstab(x0.shape, x0.dtype):
-                return bicgstab_momentum_pallas(
-                    x0, c_rel, tol=cfg.tolerance,
-                    maxiter=cfg.max_iterations)
-        return _bicgstab_masked(
-            x0, c_rel, mask, cfg.tolerance, cfg.max_iterations,
-            compensated_dots=getattr(cfg, "compensated_dots", False))
+        return _bicgstab_masked(x0, c_rel, mask, cfg.tolerance,
+                                cfg.max_iterations)
     if cfg.kind == "gmres":
         return _gmres_masked(x0, c_rel, mask, cfg.tolerance, cfg.max_iterations,
                              cfg.restart)
@@ -625,7 +551,7 @@ def _unrelaxed_residual(x_star, c_un, *, is_u: bool, compensated: bool = False):
     transformation (``ops/compensated.py``): in f32 the plain evaluation
     floors near 2e-7 relative (cancellation of O(1) stencil terms), the
     compensated one resolves the exact residual to f32 roundoff — the
-    TPU path to the reference's 1e-7 convergence regime.
+    float32 path to the reference's 1e-7 convergence regime.
     """
     if compensated:
         from ..ops.compensated import compensated_linear_combination, compensated_norm
@@ -667,73 +593,16 @@ def _unrelaxed_residual(x_star, c_un, *, is_u: bool, compensated: bool = False):
     return rf, norm
 
 
-def _cheby_strips_applicable(cfg, shape, dtype, c_rel):
-    """Gate for the strip-blocked Chebyshev solve+residual kernel
-    (ops/pallas_cheby.py): five-point systems on large TPU grids."""
-    if getattr(cfg, "kind", None) != "chebyshev":
-        return False
-    if getattr(cfg, "backend", "auto") not in ("auto", "pallas"):
-        return False
-    if getattr(cfg, "compensated_residual", False):
-        return False  # the compensated residual stays on the XLA path
-    if not isinstance(c_rel, StencilCoeffs):
-        return False  # 9-point QUICK/LUDS systems
-    from ..ops.pallas_cheby import supports_cheby_strips
-
-    return supports_cheby_strips(shape, dtype)
-
-
-def _cheby_strip_field(x0, c_un, c_rel, mask, cfg, *, is_u: bool,
-                       bounds=None):
-    """One field through the fused strip kernel.  Returns the same
-    ``(x_star, r_field, r_norm)`` as the XLA composition: the kernel's
-    masked residual zeroes exactly the complement of the norm region, so
-    its L2 IS the reference interior norm, and the diagnostics field is a
-    further border mask of it (``_unrelaxed_residual`` margins)."""
-    from ..ops.pallas_cheby import chebyshev_momentum_strips
-
-    if bounds is None:
-        bounds = _chebyshev_bounds(c_rel, mask, cfg.bound_margin)
-    theta, delta, sigma1 = bounds
-    x_star, r_m = chebyshev_momentum_strips(
-        x0, c_rel, c_un, theta=theta, delta=delta, sigma1=sigma1,
-        degree=cfg.degree)
-    margins = (2, 2, 1, 1) if is_u else (1, 1, 2, 2)
-    r_field = jnp.where(interior_mask(r_m.shape, *margins), r_m, 0.0)
-    return x_star, r_field, jnp.linalg.norm(r_m)
-
-
-def solve_u_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions, cfg,
-                     coeffs=None, gersh_rho=None, d_pre=None):
-    """u-momentum predictor.  Returns (u_star, d_u, r_field, r_norm).
-
-    ``coeffs``: optional precomputed ``(c_un, c_rel)`` pair (the strip-fused
-    assembly of :func:`solve_momentum_pair`); BCs must already be applied.
-    ``gersh_rho``: optional raw masked Gershgorin ratio maximum of the
-    relaxed system (folded into the assembly kernel) — used by the
-    Chebyshev solver in place of its own five-array read + max barrier.
-    ``d_pre``: optional precomputed d-coefficient field (same fold).
-    """
+def solve_u_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions, cfg):
+    """u-momentum predictor.  Returns (u_star, d_u, r_field, r_norm)."""
     u, v = apply_velocity_bcs(u, v, bc)
-    if coeffs is not None:
-        c_un, c_rel = coeffs
-    else:
-        c_un = _assemble_coeffs(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
-                                scheme=getattr(cfg, "scheme", "power_law"),
-                                is_u=True)
-        c_rel = _relax(c_un, u, alpha)
+    c_un = _assemble_coeffs(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
+                            scheme=getattr(cfg, "scheme", "power_law"),
+                            is_u=True)
+    c_rel = _relax(c_un, u, alpha)
     mask = _u_interior_mask(u.shape)
-    d_u = (d_pre if d_pre is not None
-           else d_coefficient(c_rel.a_p, dy, is_u=True))
-    bounds = (None if gersh_rho is None
-              else _bounds_from_rho(gersh_rho,
-                                    getattr(cfg, "bound_margin", 1.05)))
-    if _cheby_strips_applicable(cfg, u.shape, u.dtype, c_rel):
-        u_star, r_field, r_norm = _cheby_strip_field(
-            u, c_un, c_rel, mask, cfg, is_u=True, bounds=bounds)
-        u_star, _ = apply_velocity_bcs(u_star, v, bc)
-        return u_star, d_u, r_field, r_norm
-    u_star = _inner_solve(u, c_rel, mask, cfg, bounds=bounds)
+    d_u = d_coefficient(c_rel.a_p, dy, is_u=True)
+    u_star = _inner_solve(u, c_rel, mask, cfg)
     u_star, _ = apply_velocity_bcs(u_star, v, bc)
     r_field, r_norm = _unrelaxed_residual(
         u_star, c_un, is_u=True,
@@ -741,29 +610,16 @@ def solve_u_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions,
     return u_star, d_u, r_field, r_norm
 
 
-def solve_v_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions, cfg,
-                     coeffs=None, gersh_rho=None, d_pre=None):
+def solve_v_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions, cfg):
     """v-momentum predictor.  Returns (v_star, d_v, r_field, r_norm)."""
     u, v = apply_velocity_bcs(u, v, bc)
-    if coeffs is not None:
-        c_un, c_rel = coeffs
-    else:
-        c_un = _assemble_coeffs(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
-                                scheme=getattr(cfg, "scheme", "power_law"),
-                                is_u=False)
-        c_rel = _relax(c_un, v, alpha)
+    c_un = _assemble_coeffs(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
+                            scheme=getattr(cfg, "scheme", "power_law"),
+                            is_u=False)
+    c_rel = _relax(c_un, v, alpha)
     mask = _v_interior_mask(v.shape)
-    d_v = (d_pre if d_pre is not None
-           else d_coefficient(c_rel.a_p, dx, is_u=False))
-    bounds = (None if gersh_rho is None
-              else _bounds_from_rho(gersh_rho,
-                                    getattr(cfg, "bound_margin", 1.05)))
-    if _cheby_strips_applicable(cfg, v.shape, v.dtype, c_rel):
-        v_star, r_field, r_norm = _cheby_strip_field(
-            v, c_un, c_rel, mask, cfg, is_u=False, bounds=bounds)
-        _, v_star = apply_velocity_bcs(u, v_star, bc)
-        return v_star, d_v, r_field, r_norm
-    v_star = _inner_solve(v, c_rel, mask, cfg, bounds=bounds)
+    d_v = d_coefficient(c_rel.a_p, dx, is_u=False)
+    v_star = _inner_solve(v, c_rel, mask, cfg)
     _, v_star = apply_velocity_bcs(u, v_star, bc)
     r_field, r_norm = _unrelaxed_residual(
         v_star, c_un, is_u=False,
@@ -771,186 +627,42 @@ def solve_v_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions,
     return v_star, d_v, r_field, r_norm
 
 
-def asmcheby_enabled(nx, ny, cfg, scheme="power_law",
-                     dtype=jnp.float32) -> bool:
-    """Static gate for the merged in-kernel-assembling Chebyshev path
-    (``ops/pallas_asmcheby.py``).  The SIMPLE loop uses this to decide —
-    at build time, from the mesh dims — whether to carry the lagged
-    Gershgorin maxima in its ``extra`` state; it must therefore predict
-    :func:`solve_momentum_pair`'s merged branch exactly."""
-    if getattr(cfg, "kind", None) != "chebyshev":
-        return False
-    if getattr(cfg, "backend", "auto") not in ("auto", "pallas"):
-        return False
-    if getattr(cfg, "merged_assembly", "auto") == "off":
-        return False
-    if getattr(cfg, "compensated_residual", False):
-        return False  # the compensated residual stays on the XLA path
-    from ..ops.pallas_asmcheby import supports_asmcheby
-
-    return supports_asmcheby(nx, ny, scheme, dtype,
-                             getattr(cfg, "backend", "auto"), cfg.degree)
-
-
 def solve_momentum_pair(u, v, p, *, dx, dy, rho, mu, alpha,
-                        bc: BoundaryConditions, cfg,
-                        poisson_variant: str | None = None,
-                        lagged_rho=None):
-    """Both momentum predictors, with the coefficient assembly of the two
-    fields fused into one strip-blocked Pallas pass on large TPU grids
-    (``ops/pallas_assembly.py`` — measured 0.64 ms/iter of XLA assembly at
-    1024^2 against a ~0.1 ms streaming roofline).  Falls back to the
-    separate :func:`solve_u_momentum` / :func:`solve_v_momentum` path
-    everywhere else.  Returns ``((u_star, d_u, r_u, u_norm),
-    (v_star, d_v, r_v, v_norm))``.
-
-    ``poisson_variant``: when set, ALSO returns a third element — the
-    pressure-correction operator ``pc`` folded into the assembly kernel
-    (``fused_assembly_pair(poisson_variant=...)``), or ``None`` where the
-    fused assembly did not run (the caller rebuilds it in XLA).
-
-    ``lagged_rho``: when not None — a ``(rho_u, rho_v)`` pair of the
-    previous outer iteration's masked Gershgorin ratio maxima — run the
-    merged assemble+solve kernel (``ops/pallas_asmcheby.py``: the 16
-    coefficient arrays never touch HBM; the Chebyshev interval comes
-    from the lagged maxima) and return a FOURTH element, the fresh
-    ``(rho_u, rho_v)`` pair for the next iteration.  The caller must
-    pass this only when :func:`asmcheby_enabled` is True for the same
-    configuration (the SIMPLE loop's ``extra``-carry shape depends on
-    it)."""
-    from ..ops.pallas_assembly import (fused_assembly_pair,
-                                      supports_fused_assembly)
-
-    nxp1, ny = u.shape
+                        bc: BoundaryConditions, cfg):
+    """Both momentum predictors.  BiCGSTAB on five-point power-law systems
+    runs the two solves as one batched Krylov loop
+    (:func:`_bicgstab_pair_masked`) unless ``cfg.batch_pair == 'off'``;
+    every other configuration runs :func:`solve_u_momentum` and
+    :func:`solve_v_momentum`.  Returns ``((u_star, d_u, r_u, u_norm),
+    (v_star, d_v, r_v, v_norm))``."""
+    kw = dict(dx=dx, dy=dy, rho=rho, mu=mu)
     scheme = getattr(cfg, "scheme", "power_law")
-    if lagged_rho is not None:
-        if not asmcheby_enabled(nxp1 - 1, ny, cfg, scheme, u.dtype):
-            raise ValueError(
-                "lagged_rho passed but the merged asmcheby kernel is not "
-                "applicable here — the caller's static gate is out of "
-                "sync with asmcheby_enabled")
-        if poisson_variant is None:
-            raise ValueError("the merged asmcheby path requires the "
-                             "poisson fold (poisson_variant set)")
-        from ..ops.pallas_asmcheby import fused_asmcheby_pair
-
-        margin = getattr(cfg, "bound_margin", 1.05)
-        ub, vb = apply_velocity_bcs(u, v, bc)
-        (u_star, r_u, v_star, r_v, d_u, d_v, pc,
-         rho_u_new, rho_v_new) = fused_asmcheby_pair(
-            ub, vb, p, dx=dx, dy=dy, rho=rho, mu=mu, alpha=alpha,
-            degree=cfg.degree,
-            bounds_u=_bounds_from_rho(lagged_rho[0], margin),
-            bounds_v=_bounds_from_rho(lagged_rho[1], margin),
-            poisson_variant=poisson_variant)
-        u_star, v_star = apply_velocity_bcs(u_star, v_star, bc)
-        # norms + diagnostics margins: _cheby_strip_field semantics (the
-        # kernel's masked residual complement IS the norm region)
-        u_norm = jnp.linalg.norm(r_u)
-        v_norm = jnp.linalg.norm(r_v)
-        r_u = jnp.where(interior_mask(r_u.shape, 2, 2, 1, 1), r_u, 0.0)
-        r_v = jnp.where(interior_mask(r_v.shape, 1, 1, 2, 2), r_v, 0.0)
-        return ((u_star, d_u, r_u, u_norm), (v_star, d_v, r_v, v_norm),
-                pc, (rho_u_new, rho_v_new))
-    coeffs = None
-    rho_u = rho_v = None
-    d_u_f = d_v_f = pc_f = None
-    if supports_fused_assembly(nxp1 - 1, ny, scheme, u.dtype,
-                               getattr(cfg, "backend", "auto")):
-        u, v = apply_velocity_bcs(u, v, bc)
-        # in-assembly Gershgorin fold: the Chebyshev bounds come out
-        # of the kernel, saving two five-array reads + two barriers
-        want_bounds = (getattr(cfg, "kind", None) == "chebyshev"
-                       and getattr(cfg, "assembly_bounds", "auto") == "auto")
-        res = fused_assembly_pair(
-            u, v, p, dx=dx, dy=dy, rho=rho, mu=mu, alpha=alpha,
-            with_bounds=want_bounds, poisson_variant=poisson_variant)
-        cu_un, cu_rel, cv_un, cv_rel = res[:4]
-        i = 4
-        if want_bounds:
-            rho_u, rho_v = res[i:i + 2]
-            i += 2
-        if poisson_variant is not None:
-            d_u_f, d_v_f, pc_f = res[i:i + 3]
-        coeffs = (cu_un, cu_rel, cv_un, cv_rel)
-
-    if _pair_krylov_applicable(cfg, u.shape, v.shape, u.dtype,
-                               scheme, coeffs):
-        # batched u+v BiCGSTAB: one Krylov loop, half the reduction
-        # barriers (see _bicgstab_pair_masked) — the large-grid regime
-        # where the per-field fused VMEM kernel no longer fits
-        ub, vb = apply_velocity_bcs(u, v, bc)
-        if coeffs is not None:
-            cu_un, cu_rel, cv_un, cv_rel = coeffs
-        else:
-            cu_un = _assemble_coeffs(ub, vb, p, dx=dx, dy=dy, rho=rho,
-                                     mu=mu, scheme=scheme, is_u=True)
-            cu_rel = _relax(cu_un, ub, alpha)
-            cv_un = _assemble_coeffs(ub, vb, p, dx=dx, dy=dy, rho=rho,
-                                     mu=mu, scheme=scheme, is_u=False)
-            cv_rel = _relax(cv_un, vb, alpha)
-        u_star, v_star = _bicgstab_pair_masked(
-            ub, cu_rel, _u_interior_mask(ub.shape),
-            vb, cv_rel, _v_interior_mask(vb.shape),
-            cfg.tolerance, cfg.max_iterations)
-        u_star, v_star = apply_velocity_bcs(u_star, v_star, bc)
-        d_u = (d_u_f if d_u_f is not None
-               else d_coefficient(cu_rel.a_p, dy, is_u=True))
-        d_v = (d_v_f if d_v_f is not None
-               else d_coefficient(cv_rel.a_p, dx, is_u=False))
-        comp = getattr(cfg, "compensated_residual", False)
-        r_u, u_norm = _unrelaxed_residual(u_star, cu_un, is_u=True,
-                                          compensated=comp)
-        r_v, v_norm = _unrelaxed_residual(v_star, cv_un, is_u=False,
-                                          compensated=comp)
-        out_u = (u_star, d_u, r_u, u_norm)
-        out_v = (v_star, d_v, r_v, v_norm)
-        return ((out_u, out_v) if poisson_variant is None
-                else (out_u, out_v, pc_f))
-
-    if coeffs is not None:
-        cu_un, cu_rel, cv_un, cv_rel = coeffs
-        out_u = solve_u_momentum(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
-                                 alpha=alpha, bc=bc, cfg=cfg,
-                                 coeffs=(cu_un, cu_rel), gersh_rho=rho_u,
-                                 d_pre=d_u_f)
-        out_v = solve_v_momentum(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
-                                 alpha=alpha, bc=bc, cfg=cfg,
-                                 coeffs=(cv_un, cv_rel), gersh_rho=rho_v,
-                                 d_pre=d_v_f)
-        return ((out_u, out_v) if poisson_variant is None
-                else (out_u, out_v, pc_f))
-    out_u = solve_u_momentum(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
-                             alpha=alpha, bc=bc, cfg=cfg)
-    out_v = solve_v_momentum(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
-                             alpha=alpha, bc=bc, cfg=cfg)
-    return ((out_u, out_v) if poisson_variant is None
-            else (out_u, out_v, None))
+    if not _pair_krylov_applicable(cfg, scheme):
+        return (solve_u_momentum(u, v, p, alpha=alpha, bc=bc, cfg=cfg, **kw),
+                solve_v_momentum(u, v, p, alpha=alpha, bc=bc, cfg=cfg, **kw))
+    ub, vb = apply_velocity_bcs(u, v, bc)
+    cu_un = _assemble_coeffs(ub, vb, p, scheme=scheme, is_u=True, **kw)
+    cu_rel = _relax(cu_un, ub, alpha)
+    cv_un = _assemble_coeffs(ub, vb, p, scheme=scheme, is_u=False, **kw)
+    cv_rel = _relax(cv_un, vb, alpha)
+    u_star, v_star = _bicgstab_pair_masked(
+        ub, cu_rel, _u_interior_mask(ub.shape),
+        vb, cv_rel, _v_interior_mask(vb.shape),
+        cfg.tolerance, cfg.max_iterations)
+    u_star, v_star = apply_velocity_bcs(u_star, v_star, bc)
+    comp = getattr(cfg, "compensated_residual", False)
+    r_u, u_norm = _unrelaxed_residual(u_star, cu_un, is_u=True,
+                                      compensated=comp)
+    r_v, v_norm = _unrelaxed_residual(v_star, cv_un, is_u=False,
+                                      compensated=comp)
+    return ((u_star, d_coefficient(cu_rel.a_p, dy, is_u=True), r_u, u_norm),
+            (v_star, d_coefficient(cv_rel.a_p, dx, is_u=False), r_v, v_norm))
 
 
-def _pair_krylov_applicable(cfg, u_shape, v_shape, dtype, scheme, coeffs):
-    """Batched-pair BiCGSTAB gate: 5-point power-law systems where the
-    per-field fused VMEM kernel (ops/pallas_krylov.py) does NOT apply —
-    i.e. the large grids whose cost is reduction barriers, not FLOPs.
-    ``batch_pair='off'`` forces the sequential path (parity studies)."""
-    if getattr(cfg, "kind", None) != "bicgstab":
-        return False
-    if getattr(cfg, "batch_pair", "auto") == "off":
-        return False
-    if getattr(cfg, "compensated_dots", False):
-        return False  # the batched dots are plain reassociated sums — a
-        # config that asked for compensated reductions must not silently
-        # lose them (advisor r4); the sequential path honors the flag
-    if getattr(cfg, "backend", "auto") == "xla":
-        return False  # sequential-parity escape hatch alongside
-        # batch_pair='off' (advisor r4)
-    if scheme != "power_law":
-        return False  # 9-point QUICK/LUDS systems use MomentumCoeffs9
-    if (getattr(cfg, "backend", "auto") in ("auto", "pallas")
-            and jax.default_backend() == "tpu"):
-        from ..ops.pallas_krylov import supports_fused_bicgstab
-
-        if (supports_fused_bicgstab(u_shape, dtype)
-                and supports_fused_bicgstab(v_shape, dtype)):
-            return False  # the one-kernel-per-field path wins when it fits
-    return True
+def _pair_krylov_applicable(cfg, scheme) -> bool:
+    """Batched-pair BiCGSTAB gate: five-point power-law systems (the
+    9-point QUICK/LUDS systems use MomentumCoeffs9), unless
+    ``batch_pair='off'`` forces the sequential path."""
+    return (getattr(cfg, "kind", None) == "bicgstab"
+            and getattr(cfg, "batch_pair", "auto") != "off"
+            and scheme == "power_law")

@@ -1,12 +1,12 @@
 """Geometric multigrid for the pressure-correction equation.
 
-TPU-native rebuild of the reference GMG
+JAX rebuild of the reference GMG
 (``naviflow_oo/solver/pressure_solver/multigrid.py``): V-cycle (:304-432),
 W-cycle (:434-560), and FMG (:562-688) on the ``2**k - 1`` grid hierarchy
 with full-weighting residual restriction and bilinear correction
 prolongation.
 
-TPU-first design decisions (documented deviations from the reference):
+Design decisions (documented deviations from the reference):
 
 * **Galerkin coarse operators.**  The reference rediscretizes coarse levels
   from harmonically restricted d-coefficients
@@ -22,8 +22,8 @@ TPU-first design decisions (documented deviations from the reference):
   whole cycle unrolls into one fused XLA program.
 * **Coarsest solve**: the reference calls SuperLU ``spsolve``
   (``multigrid.py:268-302``); dense factorization of a <=7^2 system is host
-  logic, so we run a fixed block of 4-color GS sweeps on a tile already in
-  VMEM, which also handles the singular (gauge-free) operator gracefully.
+  logic, so we run a fixed block of 4-color GS sweeps on the device, which
+  also handles the singular (gauge-free) operator gracefully.
 * **Smoothers**: red-black SOR on the 5-point finest level, 4-color GS on
   the 9-point Galerkin levels (every neighbor of a cell has a different
   color, so each masked quarter-sweep is a true GS update).  The reference's
@@ -69,7 +69,7 @@ from .pressure import PressureSolveInfo
 @dataclasses.dataclass(frozen=True)
 class MultigridConfig:
     """Parity with the reference ``MultiGridSolver`` constructor knobs
-    (``multigrid.py:21-119``) where they survive the TPU redesign."""
+    (``multigrid.py:21-119``) where they survive the redesign."""
 
     tolerance: float = 1e-3
     max_cycles: int = 100
@@ -85,9 +85,9 @@ class MultigridConfig:
     restriction: str = "full_weighting"  # 'full_weighting' | 'inject'
     # 'bfloat16': run the smoothing sweeps on the f32 ERROR equation in
     # bf16 (residuals/transfers/corrections stay f32) — halves the
-    # smoother's HBM traffic, the dominant cost at >= 1024^2.  Exactly the
-    # same affine iteration when dtypes match, so convergence degrades
-    # only by bf16 rounding of the per-level corrections.
+    # smoother's bytes.  Exactly the same affine iteration when dtypes
+    # match, so convergence degrades only by bf16 rounding of the
+    # per-level corrections.
     smoother_dtype: str = "float32"
     # correction prolongation on odd (vertex) grids: 'linear' | 'cubic'
     # (reference multigrid_helpers.py:333-391; cubic requires
@@ -98,33 +98,18 @@ class MultigridConfig:
     # Rebuild the *coarse* Galerkin operators only every K outer iterations
     # (the fine operator is always current, so the V-cycle's fixed point is
     # the exact solution of the current system; stale coarse ops only affect
-    # the error-correction rate).  Measured: the RAP build is ~30% of a
-    # SIMPLE iteration.  1 = rebuild every iteration (no lagging).  Only the
-    # algorithm layer acts on this (it owns the cross-iteration carry).
+    # the error-correction rate).  1 = rebuild every iteration (no lagging).
+    # Only the algorithm layer acts on this (it owns the cross-iteration
+    # carry).
     coarse_rebuild_every: int = 1
-    # 'auto'/'pallas': run each V-cycle as ONE fused VMEM-resident kernel
-    # (ops/pallas_mg.py) on TPU when the configuration supports it —
-    # measured 2.4-2.9x faster SIMPLE iterations at 63^2-255^2
-    # (benchmarks/CYCLE_TIMING.jsonl).  Falls back to the XLA path when
-    # unsupported (non-TPU backend, W/FMG cycles, non-GS smoothers,
-    # hierarchies over the VMEM budget).  'xla' forces the fallback.
-    backend: str = "auto"  # 'auto' | 'pallas' | 'xla'
     # 'plane': hold the (even, five-point) finest level as red/black color
     # planes across the whole solve (ops/plane.py) — every smoothing
-    # half-sweep then touches half-size arrays with no color-masked waste,
-    # halving both the streamed bytes and the arithmetic of the dominant
-    # fine-level work; the split/merge conversions amortize to once per
-    # solve.  'auto' (default) resolves by the round-4 hardware
-    # measurements, at the FULL-STEP level (CYCLE_TIMING.jsonl
-    # kind=fine-layout, TPU v5e, ms/SIMPLE-iteration, after the
-    # per-kernel scoped-VMEM raise un-gated large strip windows —
-    # 2048^2: interleaved 17.6 vs plane 19.3; 4096^2: 70.8 vs 81.8):
-    # interleaved strips at EVERY size.  The standalone-MG shootout
-    # (LAYOUT_SHOOTOUT.jsonl) had plane narrowly ahead at 2048^2 (1.55
-    # vs 1.68 ms/V-cycle), but that chained-cycle harness amortizes the
-    # split/merge conversions across back-to-back cycles; inside the
-    # step each pressure solve converts against interleaved-form
-    # assembly/momentum neighbors and the conversion cost wins out.
+    # half-sweep then touches half-size arrays with no color-masked waste;
+    # the split/merge conversions amortize to once per solve.  'auto'
+    # (default) resolves to 'interleaved': inside the SIMPLE step each
+    # pressure solve converts against interleaved-form assembly/momentum
+    # neighbours, and whether the half-width sweeps pay for those
+    # conversions on the GPU is not measured yet.
     fine_layout: str = "auto"  # 'auto' | 'interleaved' | 'plane'
     kind: str = "multigrid"
 
@@ -133,8 +118,8 @@ def _rb2_sweep(p, b, st: Stencil9, omega: float):
     """Two-color red-black SOR — valid when the stencil's diagonal-corner
     entries are zero (the 5-point finest level).  Uses the 5-point
     ``apply5`` fast path: the corner arrays are runtime zeros that would
-    otherwise be streamed from HBM every half-sweep (~1/3 of the
-    bandwidth-bound sweep cost at 1024^2+)."""
+    otherwise be streamed from device memory every half-sweep (4 of the 9
+    stencil arrays of a bandwidth-bound sweep)."""
     shape = p.shape
     ii = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
     jj = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
@@ -232,30 +217,12 @@ def build_levels(d_u, d_v, cfg: MultigridConfig, *, dx, dy, rho, variant):
         while min(shapes[-1]) > cfg.coarsest_grid_size:
             _, _, (nxc, nyc) = _level_transfers(*shapes[-1], cfg)
             shapes.append((nxc, nyc))
-        rap_ok = lambda shp: False
-        if (getattr(cfg, "backend", "auto") in ("auto", "pallas")
-                and len(shapes) > 1 and jax.default_backend() == "tpu"):
-            from ..ops.pallas_mg import (galerkin_levels_pallas,
-                                         supports_fused_rap)
-
-            rap_ok = lambda shp: supports_fused_rap(*shp, cfg, fine.c.dtype)
-        # XLA-coarsen levels too large for the fused-RAP kernel's VMEM
-        # budget, then build the entire remaining sub-hierarchy in ONE
-        # kernel (measured 5.1 ms -> sub-ms at 63^2; the dominant lagged
-        # per-iteration cost — ops/pallas_mg.galerkin_levels_pallas)
         st = fine
-        cur = 0
-        while cur < len(shapes) - 1 and not rap_ok(shapes[cur]):
+        for cur in range(len(shapes) - 1):
             rf, pf, _ = _level_transfers(*shapes[cur], cfg)
             st = galerkin_coarsen(st, rf, pf, *shapes[cur + 1])
             levels.append((st, shapes[cur + 1], False,
                            lam_of(st, shapes[cur + 1])))
-            cur += 1
-        if cur < len(shapes) - 1:
-            for stc, shp in zip(
-                    galerkin_levels_pallas(st, shapes[cur:], cur == 0),
-                    shapes[cur + 1:]):
-                levels.append((stc, shp, False, lam_of(stc, shp)))
     elif cfg.coarsening == "rediscretize":
         while min(nx, ny) > cfg.coarsest_grid_size:
             d_u, d_v = restrict_d_coefficients(d_u, d_v)
@@ -315,68 +282,6 @@ def _cycle(p, b, levels, lvl, cfg):
     return _smooth(p, b, st, cfg, cfg.post_smoothing, five, lam)
 
 
-def _cycle0(p, b, levels, cfg):
-    """One cycle at the finest level — as the single fused Pallas kernel
-    (``ops/pallas_mg.py``) when ``cfg.backend == 'pallas'`` and the
-    configuration supports it on this backend, else the XLA-composed
-    :func:`_cycle`.  When only the finest level exceeds the VMEM budget
-    (e.g. 511^2 — measured 20.8 MB whole-hierarchy), the level-0 work
-    stays XLA and the entire TAIL (levels 1..coarsest) runs as one fused
-    kernel."""
-    if cfg.backend in ("auto", "pallas") and jax.default_backend() == "tpu":
-        from ..ops.pallas_mg import fused_vcycle, supports_fused
-
-        if supports_fused(levels, cfg):
-            return fused_vcycle(p, b, levels, cfg)
-        # peel fine levels too large for VMEM (XLA or strip kernels), fuse
-        # the deepest tail that fits — at 1024^2+ the sub-256^2 tail is
-        # where the dispatch overhead concentrates
-        k = next((k for k in range(1, len(levels))
-                  if supports_fused(levels[k:], cfg)), None)
-        if k is not None and cfg.cycle_type == "v":
-            return _peeled_cycle(
-                p, b, levels, cfg, k,
-                lambda e0, rc: fused_vcycle(e0, rc, levels[k:], cfg),
-                strip=True)
-    return _cycle(p, b, levels, 0, cfg)
-
-
-def _peeled_cycle(p, b, levels, cfg, k: int, tail_fn, strip: bool = False):
-    """V-cycle with levels 0..k-1 composed in XLA and the remaining tail
-    delegated to ``tail_fn(e0, rc)`` — the fused kernel on TPU (injectable
-    for equivalence tests).
-
-    ``strip=True`` (TPU path): qualifying peeled levels (big even
-    five-point) run as temporal-blocking strip kernels —
-    pre-smooth+residual+restrict and prolong+post-smooth each become ONE
-    Pallas launch whose tiles stay VMEM-resident through all half-sweeps,
-    cutting the fine level's HBM traffic ~7x (``ops/pallas_strip.py``)."""
-    if strip:
-        from ..ops.pallas_strip import strip_down, strip_up, supports_strip
-    carry, bs = [], [b]
-    for lvl in range(k):
-        st, (nx, ny), five, lam = levels[lvl]
-        x0 = p if lvl == 0 else jnp.zeros_like(bs[-1])
-        if strip and supports_strip(nx, ny, five, cfg, x0.dtype):
-            x, rc = strip_down(x0, bs[-1], st, cfg, five)
-            carry.append((x, None, st, five, lam, True))
-            bs.append(rc)
-        else:
-            rf, pf, _ = _level_transfers(nx, ny, cfg)
-            x = _smooth(x0, bs[-1], st, cfg, cfg.pre_smoothing, five, lam)
-            carry.append((x, pf, st, five, lam, False))
-            bs.append(rf(bs[-1] - apply_five(x, st, five)))
-    ec = tail_fn(jnp.zeros_like(bs[-1]), bs[-1])
-    for lvl in reversed(range(k)):
-        x, pf, st, five, lam, stripped = carry[lvl]
-        if stripped:
-            ec = strip_up(x, bs[lvl], st, ec, cfg, five)
-        else:
-            x = x + pf(ec)
-            ec = _smooth(x, bs[lvl], st, cfg, cfg.post_smoothing, five, lam)
-    return ec
-
-
 def _fmg(b, levels, cfg):
     """Full-multigrid bootstrap (reference ``_fmg_cycle``, :562-688)."""
     rhs = [b]
@@ -398,15 +303,6 @@ def coarse_stencils(levels):
     return tuple(st for st, _, _, _ in levels[1:])
 
 
-def levels_with_coarse(fine_levels_meta, fine_st, coarse_sts):
-    """Reassemble a levels list from static metadata + (possibly lagged)
-    stencil pytrees."""
-    out = [(fine_st,) + fine_levels_meta[0][1:]]
-    for meta, st in zip(fine_levels_meta[1:], coarse_sts):
-        out.append((st,) + meta[1:])
-    return out
-
-
 def multigrid_solve(
     b, d_u, d_v, p0, cfg: MultigridConfig, *, dx, dy, rho, variant="consistent",
     levels=None,
@@ -426,30 +322,13 @@ def multigrid_solve(
 
     p_start = _fmg(b, levels, cfg) if cfg.cycle_type == "fmg" else p0
 
-    if (getattr(cfg, "backend", "auto") in ("auto", "pallas")
-            and jax.default_backend() == "tpu"):
-        from ..ops.pallas_mg import fused_mg_solve, supports_fused
-
-        if supports_fused(levels, cfg):
-            # the whole cycle/check loop in ONE kernel launch
-            p, r, cycles, rel = fused_mg_solve(
-                p_start, b, levels, cfg,
-                mean_normalize=(variant != "reference"))
-            return p, PressureSolveInfo(iterations=cycles, residual_field=r,
-                                        rel_residual=rel)
-
     def cond(carry):
         p, k, rel = carry
         return (k < cfg.max_cycles) & (rel >= cfg.tolerance)
 
     layout = getattr(cfg, "fine_layout", "auto")
     if layout == "auto":
-        # full-step measurements post VMEM-limit raise (CYCLE_TIMING.jsonl
-        # kind=fine-layout — 2048^2: interleaved 17.6 vs plane 19.3
-        # ms/iter; 4096^2: 70.8 vs 81.8): interleaved at every size.  The
-        # in-step split/merge conversions against interleaved-form
-        # neighbors cost more than plane's half-width sweeps save; see
-        # the MultigridConfig.fine_layout comment for the full account.
+        # see the MultigridConfig.fine_layout comment
         layout = "interleaved"
     use_plane = (
         layout == "plane"
@@ -468,42 +347,21 @@ def multigrid_solve(
         ps = PlaneStencil5(st_fine, b)
         R0, B0 = split_planes(p_start)
 
-        # plane-resident strip kernels (ops/pallas_plane.py): the fine
-        # level's down/up passes as one kernel launch each, both color
-        # planes VMEM-strip-resident — the half-width window fits the
-        # Mosaic cap exactly where the interleaved strips are gated off
-        # (4096^2+)
-        use_plane_kernel = False
-        if (getattr(cfg, "backend", "auto") in ("auto", "pallas")
-                and jax.default_backend() == "tpu"):
-            from ..ops.pallas_plane import supports_plane_strip
-
-            use_plane_kernel = supports_plane_strip(
-                R0.shape[0], R0.shape[1], cfg, b.dtype)
-
         def cond_p(carry):
             _, _, k, rel = carry
             return (k < cfg.max_cycles) & (rel >= cfg.tolerance)
 
         def one_cycle(RB):
             R, B = RB
-            if use_plane_kernel:
-                from ..ops.pallas_plane import (plane_strip_down,
-                                                plane_strip_up)
-
-                R, B, rc = plane_strip_down(R, B, ps, cfg)
-                ec = _cycle0(jnp.zeros_like(rc), rc, levels[1:], cfg)
-                return plane_strip_up(R, B, ps, ec, cfg)
             R, B, rc = plane_fine_down(R, B, ps, cfg.pre_smoothing)
-            ec = _cycle0(jnp.zeros_like(rc), rc, levels[1:], cfg)
+            ec = _cycle(jnp.zeros_like(rc), rc, levels[1:], 0, cfg)
             return plane_fine_up(R, B, ps, ec, cfg.post_smoothing)
 
         if cfg.tolerance <= 0.0:
             # fixed-cycle fast path: no per-check residual apply+norm, no
             # while-loop carry plumbing — exactly max_cycles cycles.  The
             # final residual (computed below for the diagnostics anyway)
-            # supplies rel.  Measured at 1024^2 (CYCLE_TIMING
-            # kind=cycle-budget fixed rows).
+            # supplies rel.
             R, B = jax.lax.fori_loop(
                 0, cfg.max_cycles, lambda _, q: one_cycle(q), (R0, B0))
             cycles = jnp.asarray(cfg.max_cycles, jnp.int32)
@@ -523,7 +381,7 @@ def multigrid_solve(
         if cfg.tolerance <= 0.0:
             p = jax.lax.fori_loop(
                 0, cfg.max_cycles,
-                lambda _, q: _cycle0(q, b, levels, cfg), p_start)
+                lambda _, q: _cycle(q, b, levels, 0, cfg), p_start)
             cycles = jnp.asarray(cfg.max_cycles, jnp.int32)
             rel = None
         else:
@@ -531,7 +389,7 @@ def multigrid_solve(
                 p, k, _ = carry
                 p = jax.lax.fori_loop(
                     0, cfg.check_every,
-                    lambda _, q: _cycle0(q, b, levels, cfg), p
+                    lambda _, q: _cycle(q, b, levels, 0, cfg), p
                 )
                 rel = jnp.linalg.norm(
                     b - apply_five(p, st_fine, five_fine)) / safe_bnorm
@@ -559,7 +417,7 @@ def make_preconditioner(levels, cfg: MultigridConfig, n_cycles: int = 1):
     def apply_M(r):
         e = jnp.zeros_like(r)
         for _ in range(n_cycles):
-            e = _cycle0(e, r, levels, cfg)
+            e = _cycle(e, r, levels, 0, cfg)
         return e
 
     return apply_M

@@ -1,8 +1,8 @@
 """Pressure-correction solvers (matrix-free, fully jit-compiled).
 
-TPU-native rebuild of the reference pressure-solver zoo
+JAX rebuild of the reference pressure-solver zoo
 (``naviflow_oo/solver/pressure_solver/``).  Every solver here is a
-``lax.while_loop`` over fused whole-grid stencil ops — the TPU-native
+``lax.while_loop`` over fused whole-grid stencil ops — the matrix-free
 equivalent of the reference's SciPy/PyAMG/PETSc (C/C++) inner loops.
 
 Common contract (reference ``base_pressure_solver.PressureSolver.solve``,
@@ -60,8 +60,8 @@ class DirectPressureConfig:
 class RBGSPressureConfig:
     """Red-black Gauss-Seidel with SOR (reference ``gauss_seidel.py``
     ``method_type='red_black'``; the sequential 'standard'/'symmetric'
-    variants have no parallel analog — red-black is the TPU substitute the
-    reference itself prefers, ``GS_vcycle.py:53``)."""
+    variants have no parallel analog — red-black is the parallel substitute
+    the reference itself prefers, ``GS_vcycle.py:53``)."""
 
     tolerance: float = 1e-5
     max_iterations: int = 10000

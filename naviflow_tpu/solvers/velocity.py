@@ -1,6 +1,6 @@
 """Velocity corrector: u = u* + d_u (p'_W - p'_P), v = v* + d_v (p'_S - p'_P).
 
-TPU-native rebuild of the reference ``StandardVelocityUpdater``
+JAX rebuild of the reference ``StandardVelocityUpdater``
 (``naviflow_oo/solver/velocity_solver/standard.py:10-69``): interior staggered
 nodes are corrected with the pressure-correction gradient scaled by the
 momentum d-coefficients, then velocity BCs are re-applied.

@@ -1,58 +1,33 @@
 """Persistent XLA compilation cache setup.
 
-Large fused solver programs (SIMPLE outer loop x multigrid hierarchy) can
-take minutes to compile through the TPU compile service; the persistent
-cache makes that a once-per-machine cost instead of once-per-process.
+Each distinct solver configuration compiles one large program (the whole
+outer loop with its multigrid hierarchy), so the persistent cache turns that
+into a once-per-checkout cost instead of a once-per-process one.
 
-The cache directory is keyed by a HOST FINGERPRINT (machine-id + CPU model
-hash).  Sessions on this runtime migrate across hosts whose /proc/cpuinfo
-flags are near-identical but whose XLA:CPU target features differ
-(+prefer-no-gather/+prefer-no-scatter); XLA loads a stale AOT entry from
-another host with only a warning ("could lead to execution errors such as
-SIGILL") and the miscompiled program silently returns NaN fields — this
-was observed, not hypothesized.  Per-host cache directories make
-cross-host loads impossible while keeping the within-host benefit.
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets no directory.  Otherwise the cache lives at the fixed path
+``<checkout>/.jax_cache`` (listed in ``.gitignore``): the directory is part
+of what a later process must find again, so it depends on nothing but the
+checkout — not the host, the process or the time.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
 
-_BASE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(__file__))), ".jax_cache")
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DEFAULT_CACHE_DIR = os.path.join(_CHECKOUT, ".jax_cache")
 
 
-def _host_fingerprint() -> str:
-    parts = []
-    try:
-        with open("/etc/machine-id") as f:
-            parts.append(f.read().strip())
-    except OSError:
-        parts.append(os.uname().nodename)
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("model name", "flags")):
-                    parts.append(line.strip())
-                    if len(parts) >= 3:
-                        break
-    except OSError:
-        pass
-    return hashlib.sha256("|".join(parts).encode()).hexdigest()[:12]
-
-
-def enable_persistent_cache(path: str | None = None) -> str:
+def enable_persistent_cache() -> str:
+    """Turn the persistent compilation cache on and return its directory."""
     import jax
 
-    path = path or os.environ.get("NAVIFLOW_JAX_CACHE")
-    if path is None:
-        path = os.path.join(_BASE_DIR, f"host-{_host_fingerprint()}")
-    os.makedirs(path, exist_ok=True)
-    try:
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = DEFAULT_CACHE_DIR
         jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover - older jax versions
-        pass
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     return path

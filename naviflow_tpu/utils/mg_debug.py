@@ -7,7 +7,7 @@ pre-smoothing, residual computation, restriction, interpolation,
 correction, and post-smoothing) and outputs a multi-page PDF that plots
 these arrays in chronological order").
 
-TPU-native split: the production cycles stay fused/jitted and untouched;
+Split: the production cycles stay fused/jitted and untouched;
 debugging runs this *separate* host-stepped recorder built from the same
 level stencils and transfer operators (``solvers/multigrid.build_levels``,
 ``_level_transfers``, ``_smooth``), so the recorded stages are the exact

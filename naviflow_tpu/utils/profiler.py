@@ -1,6 +1,6 @@
 """Profiler with HDF5 export.
 
-TPU-native rebuild of the reference ``naviflow_oo/utils/profiler.py``:
+JAX rebuild of the reference ``naviflow_oo/utils/profiler.py``:
 wall/CPU timers (:133-147), named accumulating sections (:150-177),
 per-iteration residual rows (:207-243), system-info capture (:91-131), and
 structured HDF5 export with the reference's group schema —
@@ -9,7 +9,7 @@ structured HDF5 export with the reference's group schema —
 (:290-443).  File naming matches ``{ALGO}_Re{re}_mesh{nx}x{ny}_profile.h5``
 (``simple.py:265``).
 
-On TPU, per-phase device time is captured around ``block_until_ready``
+Per-phase device time is captured around ``block_until_ready``
 boundaries (host timers); optional ``jax.profiler`` trace capture can be
 layered on via :meth:`start_device_trace`.
 """

@@ -1,9 +1,10 @@
 """Test configuration: force an 8-device virtual CPU mesh.
 
-Tests never require TPU hardware — sharded paths run on
+Tests never require an accelerator — sharded paths run on
 ``--xla_force_host_platform_device_count=8`` CPU devices, and numeric golden
-tests run in float64 on CPU (the TPU path is float32; golden tests pin the
-math, not the precision).
+tests run in float64 on CPU (the GPU path is float32; golden tests pin the
+math, not the precision).  Tests that need the card carry the ``gpu``
+marker and skip here.
 """
 
 import os

@@ -66,7 +66,7 @@ def test_simpler_converges():
 
 def test_simple_with_multigrid_pressure():
     """SIMPLE + GMG V-cycle pressure solve (the reference's 05 geo_multigrid
-    configuration, TPU-native)."""
+    configuration)."""
     from naviflow_tpu.algorithms import SIMPLEConfig, simple_solve
 
     mesh, fluid, bc, state = _setup()

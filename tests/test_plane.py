@@ -49,8 +49,7 @@ def test_split_merge_roundtrip(problem):
 
 def test_plane_sweep_matches_rb2(problem):
     """One plane-space sweep == one standard red-black sweep (up to the
-    diagonal-normalization re-association — same tolerance rationale as
-    tests/test_pallas_strip.py)."""
+    diagonal-normalization re-association, hence a roundoff tolerance)."""
     st, p, b = problem
     want = _rb2_sweep(p, b, st, 1.0)
     ps = PlaneStencil5(st, b)
@@ -128,8 +127,7 @@ def test_plane_fine_layout_solve_matches(problem):
     x_true = jnp.asarray(rngb.normal(size=(NX, NX)), jnp.float32)
     b0 = apply5(x_true, st_t)
     cfg = MultigridConfig(tolerance=1e-5, max_cycles=60, check_every=2,
-                          pre_smoothing=2, post_smoothing=2, smoother="gs",
-                          backend="xla")
+                          pre_smoothing=2, post_smoothing=2, smoother="gs")
     kw = dict(dx=1.0 / NX, dy=1.0 / NX, rho=1.0)
     p_i, info_i = multigrid_solve(b0, d_u, d_v, jnp.zeros_like(b0), cfg, **kw)
     cfg_p = dataclasses.replace(cfg, fine_layout="plane")

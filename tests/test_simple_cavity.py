@@ -50,7 +50,7 @@ def test_cavity_re100_converges_and_conserves_mass():
 def test_cavity_re100_ghia_error_reasonable_at_31():
     mesh, final, diag = _run(nx=31, re=100, tol=1e-5)
     # 31^2 power-law: ~12% max centerline error (lid gradient underresolved);
-    # the 10% pass threshold is reached at 63^2 (verified on TPU).
+    # the 10% pass threshold is reached at 63^2.
     err = infinity_norm_error(final.u, final.v, mesh, 100)
     assert err < 0.15
     assert l2_norm_error(final.u, final.v, mesh, 100) < 0.06

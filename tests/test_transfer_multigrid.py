@@ -247,26 +247,3 @@ def test_multigrid_bf16_smoothing_matches_f32_cycles():
         cycles[sd] = int(info.iterations)
     assert cycles["bfloat16"] <= cycles["float32"] + 2
 
-
-def test_peeled_cycle_bit_matches_cycle():
-    """multigrid._peeled_cycle (XLA fine levels + delegated tail, the
-    TPU tail-fusion path) is bit-identical to _cycle when the tail is the
-    XLA recursion itself."""
-    from naviflow_tpu.solvers.multigrid import (MultigridConfig, _cycle,
-                                                _peeled_cycle, build_levels)
-
-    nx = 64  # CC hierarchy
-    rng = np.random.default_rng(1)
-    d_u = jnp.asarray(rng.uniform(0.5, 1.5, (nx + 1, nx)), jnp.float32)
-    d_v = jnp.asarray(rng.uniform(0.5, 1.5, (nx, nx + 1)), jnp.float32)
-    b = jnp.asarray(rng.standard_normal((nx, nx)), jnp.float32)
-    b = b - jnp.mean(b)
-    cfg = MultigridConfig(coarsest_sweeps=16)
-    levels = build_levels(d_u, d_v, cfg, dx=1.0 / nx, dy=1.0 / nx, rho=1.0,
-                          variant="consistent")
-    p0 = jnp.zeros((nx, nx), jnp.float32)
-    ref = _cycle(p0, b, levels, 0, cfg)
-    for k in (1, 2):
-        peel = _peeled_cycle(p0, b, levels, cfg, k,
-                             lambda e0, rc: _cycle(e0, rc, levels, k, cfg))
-        assert float(jnp.max(jnp.abs(ref - peel))) == 0.0
